@@ -1,0 +1,150 @@
+"""EmbeddingBagCollection — the paper's embedding stage as an `nn.Module`.
+
+Owns a stack of homogeneous embedding tables [T, R, D] as a registered
+buffer, the per-table hot-first plans (L2 pinning), and the kernel tuning
+knobs. Every table is pooled by ONE kernel launch over indices [B, T, L]
+(the TPU path vmaps one launch per table), matching the paper's "each GPU
+executes one or more embedding tables" with the tables on the grid.
+
+Storage is pluggable: `EmbeddingStageConfig.storage` names a backend in the
+`repro_torch.storage` registry (this slice registers `device`: tables fully
+resident in device memory), and `forward()` delegates to
+`self.storage.lookup(...)`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core import hot_cache
+from repro_torch.kernels.embedding_bag import EmbeddingBagOpts
+from repro_torch.utils import resolve_device, torch_dtype
+
+
+def gather_rows(tables: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """tables [T', R, D], indices [B, T, L] -> rows [B, T, L, D] (T <= T')."""
+    t = torch.arange(indices.shape[1], device=indices.device)[None, :, None]
+    return tables[t, indices.long()]
+
+
+def _pool_rows_core(rows: torch.Tensor, weights: torch.Tensor | None,
+                    combine: str) -> torch.Tensor:
+    """Pool gathered rows [B, T, L, D] -> [B, T, D]: the plain version of
+    the embedding stage, with the CUDA kernel's semantics.
+
+    A weighted mean divides by max(Σw, 1e-9) and an unweighted one by L, as
+    `ref.embedding_bag_ref` and the Pallas kernel do. (The TPU path's XLA
+    route divides a weighted mean by `cfg.pooling` instead; ROADMAP.md
+    Queue 3 records that disagreement as a fault of the reference.)
+    """
+    if weights is not None:
+        rows = rows * weights[..., None].to(rows.dtype)
+    pooled = rows.sum(dim=2)
+    if combine == "mean":
+        if weights is not None:
+            pooled = pooled / weights.sum(dim=2).clamp_min(1e-9)[..., None]
+        else:
+            pooled = pooled / rows.shape[2]
+    elif combine != "sum":
+        raise ValueError(f"unknown combine {combine!r}")
+    return pooled
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingStageConfig:
+    num_tables: int = 250          # paper §V
+    rows: int = 500_000
+    dim: int = 128
+    pooling: int = 150
+    dtype: str = "float32"         # paper: 4-byte precision
+    combine: str = "sum"           # bag pooling mode
+    # Storage backend name, resolved in the repro_torch.storage registry
+    storage: str = "device"
+    prefetch_distance: int = 8
+    batch_block: int = 8
+    pinned_rows: int = 0           # K per table; paper: 60K rows across L2
+    # extra tables stacked after the real ones so the stack divides a
+    # device count (whole-table sharding); never looked up. 0 = none.
+    shard_pad_tables: int = 0
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    def table_bytes(self) -> int:
+        return (self.num_tables * self.rows * self.dim
+                * self.torch_dtype.itemsize)
+
+    def kernel_opts(self) -> EmbeddingBagOpts:
+        return EmbeddingBagOpts(
+            prefetch_distance=self.prefetch_distance,
+            batch_block=self.batch_block,
+            num_hot=self.pinned_rows,
+            mode=self.combine,
+        )
+
+
+class EmbeddingBagCollection(nn.Module):
+    """Tables [T(+pad), R, D] as the buffer `tables`; `ebc(indices)` ->
+    pooled [B, T, D] through the bound storage backend `self.storage`."""
+
+    def __init__(self, cfg: EmbeddingStageConfig,
+                 plans: Optional[list[hot_cache.HotPlan]] = None, *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        device = resolve_device(device)
+        # Resolve the backend FIRST: unknown names fail before any
+        # allocation. Lazy import: storage imports core.embedding.
+        from repro_torch import storage as storage_registry
+        self.storage = storage_registry.create(cfg.storage, self)
+        # One plan per table; identity when pinning is off.
+        if plans is None:
+            plans = [hot_cache.identity_plan(cfg.rows, cfg.pinned_rows)
+                     for _ in range(cfg.num_tables)]
+        if len(plans) != cfg.num_tables:
+            raise ValueError(f"{len(plans)} plans for {cfg.num_tables} tables")
+        self.plans = plans
+        # [T, R] stacked remap, applied to raw indices before lookup.
+        self.register_buffer("_remap", (
+            torch.as_tensor(np.stack([p.inv_perm for p in plans]),
+                            dtype=torch.int32, device=device)
+            if cfg.pinned_rows > 0 else None), persistent=False)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        # N(0, 1/D) rows, made on the device from the generator: at the
+        # production size the tables never exist on the host
+        tables = torch.randn(
+            (cfg.num_tables + cfg.shard_pad_tables, cfg.rows, cfg.dim),
+            generator=generator, dtype=cfg.torch_dtype, device=device)
+        tables.mul_(1.0 / np.sqrt(cfg.dim))
+        if cfg.pinned_rows > 0:
+            # Store hot-first (offline, one-time — like the paper's pinning
+            # kernel launched before the embedding bag kernel).
+            for t in range(tables.shape[0]):
+                plan = self.plans[t] if t < cfg.num_tables else self.plans[0]
+                tables[t] = plan.reorder_table(tables[t])
+        self.register_buffer("tables", tables)
+
+    def remap_indices(self, indices: torch.Tensor) -> torch.Tensor:
+        """Raw row ids -> hot-first ids. indices: [B, T, L] int32."""
+        if self._remap is None:
+            return indices
+        b = indices.shape[0]
+        return torch.gather(self._remap.expand(b, -1, -1), 2,
+                            indices.long())
+
+    # -- data path ----------------------------------------------------------
+    def forward(self, indices: torch.Tensor,
+                weights: torch.Tensor | None = None, *,
+                pre_remapped: bool = False) -> torch.Tensor:
+        """indices: [B, T, L] int32 -> pooled [B, T, D] (the TPU path's
+        `apply`; `nn.Module.apply` keeps its own meaning here).
+
+        Thin delegation into the bound storage backend."""
+        return self.storage.lookup(indices, weights,
+                                   pre_remapped=pre_remapped)

@@ -1,0 +1,103 @@
+"""DLRM (Naumov et al.) — the paper's model (§II-A, Fig. 2; config from §V).
+
+Stages: Bottom MLP (continuous features) | Embedding stage (categorical) |
+Feature interaction (pairwise dot product) | Top MLP -> CTR logit.
+
+The embedding stage is an EmbeddingBagCollection (core/embedding.py) — the
+paper's technique (the prefetching CUDA embedding-bag kernel) plugs in
+through its EmbeddingStageConfig. The MLPs and the interaction are plain
+matrix products (cuBLAS on the card).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.core.embedding import EmbeddingBagCollection, EmbeddingStageConfig
+from repro_torch.models.layers import MLPTower
+from repro_torch.utils import resolve_device, torch_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    # paper §V defaults
+    dense_features: int = 13
+    bottom_mlp: tuple[int, ...] = (1024, 512, 128, 128)
+    top_mlp: tuple[int, ...] = (128, 64, 1)
+    embedding: EmbeddingStageConfig = EmbeddingStageConfig()
+    interaction: str = "dot"      # dot | cat
+    dtype: str = "float32"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    def interaction_dim(self) -> int:
+        t = self.embedding.num_tables + 1      # +1: bottom MLP output
+        if self.interaction == "dot":
+            return self.bottom_mlp[-1] + t * (t - 1) // 2
+        return self.bottom_mlp[-1] * t
+
+
+class DLRM(nn.Module):
+    """`DLRM(cfg, device=..., seed=...)` makes random weights on `device`
+    from a `torch.Generator`; `repro_torch.convert.load_reference_params`
+    loads the TPU path's weights instead. Submodules: `bottom`, `ebc`,
+    `top`."""
+
+    def __init__(self, cfg: DLRMConfig, plans=None, *, device="cuda",
+                 seed: int = 0):
+        super().__init__()
+        if cfg.bottom_mlp[-1] != cfg.embedding.dim:
+            raise ValueError("bottom MLP output must match embedding dim "
+                             "for dot interaction")
+        self.cfg = cfg
+        device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        dt = cfg.torch_dtype
+        self.bottom = MLPTower((cfg.dense_features, *cfg.bottom_mlp), dt,
+                               generator=gen, device=device)
+        self.ebc = EmbeddingBagCollection(cfg.embedding, plans,
+                                          device=device, generator=gen)
+        self.top = MLPTower((cfg.interaction_dim(), *cfg.top_mlp), dt,
+                            generator=gen, device=device)
+        t = cfg.embedding.num_tables + 1
+        self.register_buffer("_pairs", torch.triu_indices(
+            t, t, offset=1, device=device), persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.ebc.tables.device
+
+    def _interact(self, bottom_out: torch.Tensor, pooled: torch.Tensor):
+        """bottom_out: [B, D]; pooled: [B, T, D] -> interaction features."""
+        feats = torch.cat([bottom_out[:, None, :], pooled], dim=1)
+        if self.cfg.interaction == "dot":
+            gram = torch.bmm(feats, feats.transpose(1, 2))   # [B, T+1, T+1]
+            iu, ju = self._pairs          # row-major, as jnp.triu_indices
+            pairs = gram[:, iu, ju]                          # [B, C(T+1,2)]
+            return torch.cat([bottom_out, pairs], dim=1)
+        return feats.reshape(feats.shape[0], -1)
+
+    def forward(self, dense: torch.Tensor, sparse_indices: torch.Tensor,
+                sparse_weights: torch.Tensor | None = None) -> torch.Tensor:
+        """dense: [B, F]; sparse_indices: [B, T, L] -> CTR logits [B]."""
+        pooled = self.ebc(sparse_indices, sparse_weights)
+        return self.forward_from_pooled(dense, pooled)
+
+    def forward_from_pooled(self, dense: torch.Tensor,
+                            pooled: torch.Tensor) -> torch.Tensor:
+        """Everything after the embedding stage: pooled [B, T, D] -> logits.
+
+        Split out so a host-backed storage can run its lookup on the host
+        and feed the pooled rows into this remainder.
+        """
+        bottom = self.bottom(dense, final_act=True)
+        z = self._interact(bottom, pooled.to(bottom.dtype))
+        return self.top(z)[:, 0]
+
+    def embedding_only(self, sparse_indices: torch.Tensor) -> torch.Tensor:
+        """Embedding stage in isolation (paper's embedding-only latency)."""
+        return self.ebc(sparse_indices)

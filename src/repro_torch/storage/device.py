@@ -1,0 +1,106 @@
+"""`device` backend — tables fully resident in device memory.
+
+`lookup()` is the dense path: hot-first remap, then one launch of the CUDA
+embedding-bag kernel over every table when the tables lie on a CUDA
+device, or the plain gather + `_pool_rows_core` when they lie on the CPU.
+Tables on the card always launch the kernel (or raise): nothing there
+selects the plain version.
+
+No staging, no refresh: with everything resident there is nothing to
+overlap or re-pin at the storage level (the paper's in-kernel prefetch and
+hot-row operand live inside the kernel itself, selected by
+`EmbeddingStageConfig.prefetch_distance`/`pinned_rows`). The TPU path's
+`pspec.constrain_tablewise` sharding hints have no counterpart on one card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.update import UpdateTxn, require_open
+from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+from repro_torch.storage.base import EmbeddingStorage, StorageCapabilities
+from repro_torch.storage.registry import register
+
+
+@register("device")
+class DeviceStorage(EmbeddingStorage):
+    """Dense device-resident storage: the collection's `tables` buffer IS
+    the storage.
+
+    Online updates therefore write the bound collection's tables: on
+    `commit_update` the changed rows are written IN PLACE into
+    `ebc.tables` (`index_put_`), so the engine, which reads the module's
+    tensors on every call, sees them on the NEXT forward. Logical row ids
+    route through the EBC's hot-first remap, since the stored tables are
+    physically permuted when `pinned_rows > 0`."""
+
+    def __init__(self, ebc):
+        super().__init__(ebc)
+        self._version = 0
+        self._update_txn = None
+
+    def capabilities(self) -> StorageCapabilities:
+        return StorageCapabilities(device_resident=True, updatable=True)
+
+    # -- online model updates -------------------------------------------------
+    def version(self) -> int:
+        return self._version
+
+    def begin_update(self, version: int) -> bool:
+        if self._update_txn is not None:
+            raise RuntimeError(
+                f"an update to v{self._update_txn.version} is already "
+                f"open — commit or abort it first")
+        self._update_txn = UpdateTxn(version, self._version)
+        return True
+
+    def apply_update(self, table: int, rows, values) -> bool:
+        cfg = self.cfg
+        require_open(self._update_txn, "apply_update").add(
+            table, rows, values, num_tables=cfg.num_tables,
+            num_rows=cfg.rows, dim=cfg.dim, dtype=cfg.dtype)
+        return True
+
+    def commit_update(self, version: int) -> dict:
+        txn = require_open(self._update_txn, "commit_update")
+        txn.check_commit(version)
+        merged = txn.merged()
+        tables = self.ebc.tables
+        applied = 0
+        for t, (rows, vals) in merged.items():
+            rows_t = torch.as_tensor(rows, device=tables.device)
+            phys = (rows_t if self.ebc._remap is None
+                    else self.ebc._remap[t][rows_t].long())
+            # in place: the tables buffer is the one the engine reads
+            tables[t].index_put_(
+                (phys,), torch.as_tensor(vals).to(tables.device))
+            applied += int(rows.size)
+        self._version = txn.version
+        self._update_txn = None
+        return {"updated": True, "version": self._version,
+                "rows": applied, "tables": len(merged)}
+
+    def abort_update(self, version: int) -> bool:
+        if self._update_txn is None:
+            return False
+        self._update_txn.check_commit(version)
+        self._update_txn = None
+        return True
+
+    def lookup(self, indices: torch.Tensor, weights=None, *,
+               pre_remapped: bool = False) -> torch.Tensor:
+        """indices: [B, T, L] int32 -> pooled [B, T, D]."""
+        from repro_torch.core.embedding import _pool_rows_core, gather_rows
+        cfg = self.cfg
+        if not pre_remapped:
+            indices = self.ebc.remap_indices(indices)
+        tables = self.ebc.tables                       # [T(+pad), R, D]
+        if not tables.is_cuda:
+            return _pool_rows_core(gather_rows(tables, indices), weights,
+                                   cfg.combine)
+        # pad tables are never looked up: the grid covers indices' T only
+        return embedding_bag_cuda(
+            tables, indices.to(torch.int32).contiguous(),
+            None if weights is None
+            else weights.to(torch.float32).contiguous(),
+            cfg.kernel_opts())
