@@ -7,27 +7,51 @@ Phases, each printing one JSON line and its seconds; any failure raises
 and the script exits non-zero:
 
   1. device       card name, power limit, TF32 off for matmul and cuDNN
-  2. build        the CUDA embedding-bag kernel, from the sources here
+  2. build        the CUDA embedding-bag and fused-lookup kernels, from the
+                  sources here, one nvcc each, in parallel
   3. parity       kernel vs its plain version (ref.embedding_bag_ref) on the
                   card: sum/mean, weights on/off, num_hot 0/>0, f32/bf16,
                   ragged B, vector and scalar D, out-of-range indices, and
                   one table at the serve shape (R=500K, B=2048, L=150, D=128)
-  4. serve        dlrm_production at full width through ServingSession on
+  4. parity_fused the fused kernel vs fused_warm_lookup_plain on the card:
+                  sum/mean, weights on/off, hot K 0/>0, all-hit, mixed and
+                  all-miss slot maps, PAD rows, ragged B, D=128 and D=33,
+                  T=3 in one launch, a bad slot and a bad row (NaN), bf16;
+                  one table at the serve shape with a warm cache; and the
+                  law on a small model: tiered pooled output equals the
+                  device kernel's bit for bit (hot set, refresh, update)
+  5. serve        dlrm_production at full width through ServingSession on
                   the `device` backend: 3 batches of 2048 med_hot queries;
                   the kernel launches once per forward; a 64-query
                   sub-batch's logits match the plain path
-  5. kernel_time  kernel, plain version and torch's embedding_bag at the
+  6. kernel_time  kernel, plain version and torch's embedding_bag at the
                   serve shape (CUDA events), the memory bound, and a
                   breakdown of one batch's time
-  6. kernels      one line per ported kernel (the PERF.md row)
+  7. serve_tiered the same weights and the same 3 batches on the `tiered`
+                  backend (hot 50K + warm 50K rows per table on the card,
+                  the cold tier on the host, async prefetch); the fused
+                  kernel launches once per forward; logits match phase
+                  serve's
+  8. kernel_time_fused  at the serve shape with the warm state serving
+                  left: the fused kernel held to its plain version on all
+                  tables (pooled within the bound, miss lists exact); its
+                  time, the plain version's and a torch embedding_bag's
+                  over [hot; cache] (pooled half only); the bound; and a
+                  breakdown of one tiered batch
+  9. kernels      one line per ported kernel (the PERF.md rows)
 
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
+`--stop-after PHASE` ends the run after that phase (a short first call
+for a new kernel); the result lines are then not printed.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import gc
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -41,10 +65,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs.dlrm_production import CONFIG  # noqa: E402
-from repro_torch.core.access_patterns import make_pattern  # noqa: E402
+from repro_torch.core.access_patterns import (PAPER_UNIQUE_PCT,  # noqa: E402
+                                              make_pattern)
 from repro_torch.core.embedding import _pool_rows_core, gather_rows  # noqa: E402
-from repro_torch.kernels.embedding_bag import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.embedding_bag import fused, kernel, ops, ref  # noqa: E402
 from repro_torch.models import DLRM  # noqa: E402
+from repro_torch.ps import PSConfig  # noqa: E402
 from repro_torch.serving import BatcherConfig, ServingSession  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -55,6 +81,15 @@ SUB_BATCH = 64
 # and MLP activations, the sub-batch's plain gather, the timing phase's
 # flattened indices
 HEADROOM_BYTES = 8 * 10**9
+# tier sizes of serve_tiered: the repo's convention of rows // 10 per tier
+TIER_FRACTION = 10
+# host bytes kept free beside what serve_tiered holds per table: a batch's
+# slot map, one table's completion rows, the allocator's slack
+HOST_HEADROOM_BYTES = 4 * 10**9
+# host bytes of one entry of a warm tag store's row -> slot dict
+LOC_ENTRY_BYTES = 128
+# seed of the trace batch the hot set is planned from: not a served batch
+TRACE_SEED = 100
 
 
 def emit(phase: str, **fields) -> None:
@@ -199,7 +234,517 @@ def phase_parity() -> dict:
             "results": results}
 
 
+def _fused_plain(cache, slots, rows, w, hot, num_rows, mode):
+    """The plain version per table (pooled [B, T, D]) and its miss lists."""
+    pooled, mrows, mpos = [], [], []
+    s_np, r_np = slots.cpu().numpy(), rows.cpu().numpy()
+    for t in range(slots.shape[1]):
+        pooled.append(fused.fused_warm_lookup_plain(
+            cache[t], slots[:, t], rows[:, t],
+            None if w is None else w[:, t],
+            None if hot is None else hot[t], mode=mode, num_rows=num_rows))
+        r, p = fused._miss_list_from_slots(s_np[:, t], r_np[:, t], num_rows)
+        mrows.append(r)
+        mpos.append(p)
+    return torch.stack(pooled, 1), mrows, mpos
+
+
+def _fused_bound(cache, slots, w, hot, mode):
+    """`ref.summation_bound` of each table's bags over the rows they add:
+    hot and warm hits; MISS, PAD and bad positions add a zero row."""
+    bounds = []
+    num_hot = 0 if hot is None else hot.shape[1]
+    cache_rows, dim = cache.shape[1], cache.shape[2]
+    for t in range(slots.shape[1]):
+        parts = ([] if hot is None else [hot[t].float()]) + [
+            cache[t].float(), torch.zeros((1, dim), device=cache.device)]
+        eff = torch.cat(parts)
+        s = slots[:, t].long()
+        zero_row = num_hot + cache_rows
+        idx = torch.where((s >= 0) & (s < zero_row), s,
+                          torch.full_like(s, zero_row))
+        bounds.append(ref.summation_bound(
+            eff, idx, None if w is None else w[:, t], mode))
+    return torch.stack(bounds, 1)
+
+
+def _check_lists(got_rows, got_pos, want_rows, want_pos, name):
+    for t, (gr, gp, wr, wp) in enumerate(zip(got_rows, got_pos, want_rows,
+                                             want_pos)):
+        check(np.array_equal(gr, wr), f"{name}: table {t} miss_rows differ "
+                                      f"({gr.size} vs {wr.size})")
+        check(np.array_equal(gp, wp), f"{name}: table {t} miss_pos differ "
+                                      f"({gp.size} vs {wp.size})")
+
+
+def _tiered_twin(model, combine: str, ps_cfg, trace):
+    """A tiered model holding `model`'s tables on the host and sharing its
+    MLPs, its tiers built from `trace`."""
+    emb = dataclasses.replace(model.cfg.embedding, storage="tiered",
+                              combine=combine)
+    twin = DLRM(dataclasses.replace(model.cfg, embedding=emb),
+                device="cuda", tables=model.ebc.tables.cpu())
+    twin.bottom, twin.top = model.bottom, model.top
+    twin.ebc.storage.build(ps_cfg, trace=trace)
+    return twin
+
+
+def phase_parity_fused() -> dict:
+    """Hold the fused kernel to `fused_warm_lookup_plain` on the card.
+
+    Pooled f32: `ref.summation_bound` over the rows each bag adds (zero at
+    MISS/PAD), carried through the mean's division. bf16: against the
+    plain version on the f32 upcast, plus one bf16 rounding of the stored
+    raw sum and, for a mean, one of the epilogue's quotient. miss_rows,
+    miss_pos: exactly equal. Then the law: the tiered backend's pooled
+    output equals the device kernel's bit for bit (torch.equal), fused and
+    per-row paths, sum and mean."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    results = []
+
+    def case(dtype, dim, pooling, mode, weighted, num_hot, mix, batch=13,
+             tables=3, rows=1000, cache_rows=200, bad=False):
+        cache = torch.randn((tables, cache_rows, dim), generator=gen,
+                            device=dev).to(dtype)
+        hot = (torch.randn((tables, num_hot, dim), generator=gen,
+                           device=dev).to(dtype) if num_hot else None)
+        ids = torch.randint(0, rows, (batch, tables, pooling), generator=gen,
+                            device=dev, dtype=torch.int32)
+        hits = torch.randint(0, num_hot + cache_rows, ids.shape,
+                             generator=gen, device=dev, dtype=torch.int32)
+        draw = torch.rand(ids.shape, generator=gen, device=dev)
+        if mix == "hit":
+            slots = hits
+        elif mix == "miss":
+            slots = torch.full_like(ids, fused.MISS)
+        else:   # mixed: misses, PAD positions and two all-PAD bags
+            slots = torch.where(draw < 0.4, torch.full_like(ids, fused.MISS),
+                                hits)
+            slots = torch.where(draw > 0.95, torch.full_like(ids, fused.PAD),
+                                slots)
+            slots[batch - 2:] = fused.PAD
+        if bad:   # a slot past the cache, a MISS whose row is out of range
+            slots[0, 0, 0] = num_hot + cache_rows
+            slots[batch - 1, tables - 1, pooling - 1] = fused.MISS
+            ids[batch - 1, tables - 1, pooling - 1] = rows
+        slots, ids = slots.contiguous(), ids.contiguous()
+        w = (torch.rand(ids.shape, generator=gen, device=dev)
+             if weighted else None)
+        opts = fused.FusedLookupOpts()
+        raw, mrow, mpos, counts = fused.launch_tables(cache, slots, ids, w,
+                                                      hot, rows, opts)
+        got = fused.mean_epilogue(raw, w, pooling, mode)
+        got_rows, got_pos = fused.lists_to_host(mrow, mpos, counts)
+        torch.cuda.synchronize()
+        up = (lambda x: x) if dtype == torch.float32 else \
+            (lambda x: None if x is None else x.float())
+        want, want_rows, want_pos = _fused_plain(
+            up(cache), slots, ids, w, up(hot), rows, mode)
+        bound = _fused_bound(cache, slots, w, hot, mode)
+        if dtype == torch.bfloat16:
+            # the raw sum is stored in bf16 (one rounding); a mean's f32
+            # epilogue rounds its quotient once more
+            roundings = 2 if mode == "mean" else 1
+            bound = bound + roundings * 2.0 ** -8 * (
+                want.abs().nan_to_num() + bound)
+        name = (f"{str(dtype)[6:]} D={dim} L={pooling} {mode} "
+                f"w={int(weighted)} hot={num_hot} {mix} B={batch} T={tables}"
+                + (" bad" if bad else ""))
+        if bad:
+            check(bool(torch.isnan(got[0, 0]).all()
+                       and torch.isnan(got[batch - 1, tables - 1]).all()),
+                  f"{name}: bad input did not give NaN")
+        _check_lists(got_rows, got_pos, want_rows, want_pos, name)
+        results.append(compare(got, want, bound, name))
+
+    for dim in (128, 33):
+        for mode in ("sum", "mean"):
+            for weighted in (False, True):
+                for num_hot in (0, 64):
+                    for mix in ("hit", "mixed", "miss"):
+                        case(torch.float32, dim, 24, mode, weighted,
+                             num_hot, mix)
+    case(torch.float32, 128, 70, "sum", False, 64, "mixed", bad=True)
+    case(torch.float32, 33, 5, "mean", True, 0, "mixed", bad=True)
+    case(torch.bfloat16, 128, 40, "mean", True, 64, "mixed")
+    case(torch.bfloat16, 36, 9, "sum", False, 0, "mixed")
+
+    # the single-table wrapper, cuda against plain
+    cache = torch.randn((300, 64), generator=gen, device=dev)
+    sl = torch.randint(-2, 300, (29, 11), generator=gen, device=dev)
+    rw = torch.randint(0, 5000, (29, 11), generator=gen, device=dev)
+    a = fused.fused_warm_lookup(cache, sl, rw, mode="mean", backend="cuda")
+    b = fused.fused_warm_lookup(cache, sl, rw, mode="mean", backend="plain")
+    _check_lists([a.miss_rows], [a.miss_pos], [b.miss_rows], [b.miss_pos],
+                 "fused_warm_lookup")
+    results.append(compare(a.pooled, b.pooled, _fused_bound(
+        cache[None], sl[:, None].int(), None, None, "mean")[:, 0],
+        "fused_warm_lookup cuda vs plain"))
+
+    # one table at the serve shape: med_hot rows, hot set planned from one
+    # batch, the warm cache filled by looking up another
+    R, K, B, L, D = 500_000, 50_000, 2048, 150, 128
+    pattern = make_pattern("med_hot", R, seed=0)
+    table = (torch.randn((1, R, D), generator=gen, device=dev)
+             / D ** 0.5).cpu()
+    emb = dataclasses.replace(CONFIG.embedding, num_tables=1, rows=R,
+                              pooling=L, shard_pad_tables=0,
+                              storage="tiered")
+    one = DLRM(dataclasses.replace(CONFIG, embedding=emb), device="cuda",
+               tables=table)
+    one.ebc.storage.build(
+        PSConfig(hot_rows=K, warm_slots=K, warm_backing="device",
+                 fused_lookup=True),
+        trace=pattern.sample(B, L, 11)[:, None])
+    ps = one.ebc.storage.ps
+    ps.lookup_fused(pattern.sample(B, L, 12)[:, None])
+    idx = pattern.sample(B, L, 13)[:, None]
+    slots = torch.from_numpy(ps.build_slot_map(idx)).to(dev)
+    ids = torch.from_numpy(idx).to(dev)
+    hot = ps._hot_dev
+    raw, mrow, mpos, counts = fused.launch_tables(
+        ps._warm_payload, slots, ids, None, hot, R, fused.FusedLookupOpts())
+    got_rows, got_pos = fused.lists_to_host(mrow, mpos, counts)
+    want, want_rows, want_pos = _fused_plain(ps._warm_payload, slots, ids,
+                                             None, hot, R, "sum")
+    name = "serve shape R=500000 K=C=50000 B=2048 L=150 D=128 f32 sum"
+    _check_lists(got_rows, got_pos, want_rows, want_pos, name)
+    serve_cmp = compare(raw, want,
+                        _fused_bound(ps._warm_payload, slots, None, hot,
+                                     "sum"), name)
+    serve_cmp.update(hit_frac=float((slots >= 0).float().mean()),
+                     miss_rows=int(got_rows[0].size),
+                     miss_positions=int(got_pos[0].size))
+    results.append(serve_cmp)
+    one.ebc.storage.close()
+    del one, ps, table, hot, slots, ids, raw, mrow, mpos, want
+
+    # the law, on a small model: tiered == device, bit for bit
+    law = []
+    small = dataclasses.replace(
+        CONFIG, embedding=dataclasses.replace(
+            CONFIG.embedding, num_tables=3, rows=1000, pooling=20,
+            shard_pad_tables=0))
+    rng = np.random.default_rng(5)
+    batches = [rng.integers(0, 1000, (37, 3, 20)).astype(np.int32)
+               for _ in range(4)]
+    upd_rows = np.unique(batches[3][:, 1].ravel())[:40]
+    upd_vals = rng.normal(size=(upd_rows.size, 128)).astype(np.float32)
+    for combine in ("sum", "mean"):
+        for fused_on in (True, False):
+            device_model = DLRM(dataclasses.replace(
+                small, embedding=dataclasses.replace(small.embedding,
+                                                     combine=combine)),
+                device="cuda", seed=3)
+            twin = _tiered_twin(device_model, combine, PSConfig(
+                hot_rows=100, warm_slots=200, warm_backing="device",
+                fused_lookup=fused_on), trace=batches[0])
+            steps = []
+            for step in ("hot set", "warm", "refresh", "update"):
+                if step == "refresh":
+                    check(twin.ebc.storage.refresh()["replanned"],
+                          "refresh did not re-plan")
+                if step == "update":
+                    for st in (device_model.ebc.storage, twin.ebc.storage):
+                        st.begin_update(1)
+                        st.apply_update(1, upd_rows, upd_vals)
+                        st.commit_update(1)
+                idx = batches[3 if step == "update" else 1]
+                with torch.no_grad():
+                    a = device_model.ebc(torch.from_numpy(idx).cuda())
+                    b = twin.ebc(idx)
+                check(bool(torch.equal(a, b)),
+                      f"tiered != device ({combine}, fused={fused_on}, "
+                      f"{step}): max diff {(a - b).abs().max().item():.3e}")
+                steps.append(step)
+            law.append({"combine": combine, "fused": fused_on,
+                        "steps": steps, "equal": True})
+            twin.ebc.storage.close()
+    f32 = [r for r in results if not r["case"].startswith("bfloat16")]
+    return {"cases": len(results),
+            "max_abs_err_f32": max(r["max_abs_err"] for r in f32),
+            "max_err_over_bound": max(r["max_err_over_bound"]
+                                      for r in results),
+            "serve_shape": serve_cmp, "law": law, "results": results}
+
+
+def host_available_bytes() -> int:
+    """Host memory this process may still take: MemAvailable, or less
+    where a cgroup limit is set (a container reports its host's memory in
+    /proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    try:
+        with open("/sys/fs/cgroup/memory.max") as f:
+            limit = f.read().strip()
+        with open("/sys/fs/cgroup/memory.current") as f:
+            used = int(f.read())
+        if limit != "max":
+            avail = min(avail, int(limit) - used)
+    except OSError:
+        pass
+    return avail
+
+
+def host_rss_bytes() -> int | None:
+    """This process's resident set now (/proc/self/statm), or None where
+    the file is missing."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def host_peak_rss_bytes() -> int:
+    """This process's peak resident set (getrusage's ru_maxrss, in KiB on
+    Linux)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def phase_serve_tiered(model, batches, serve_logits, deadline_s: float):
+    """The same weights and batches as phase serve, on the tiered backend.
+    Takes `model` apart: its tables go to the host, its MLPs are reused,
+    and its device tables are freed before the tiers are built. Returns
+    (fields, the session, the tiered model) — the session stays open so
+    phase kernel_time_fused finds the warm state serving left."""
+    emb = dataclasses.replace(model.cfg.embedding, storage="tiered")
+    T, R, L, D = emb.num_tables, emb.rows, emb.pooling, emb.dim
+    B = batches[0][1].shape[0]
+    ps_cfg = PSConfig(hot_rows=R // TIER_FRACTION,
+                      warm_slots=R // TIER_FRACTION, warm_backing="device",
+                      fused_lookup=True, async_prefetch=True,
+                      prefetch_depth=2)
+    # host bytes per table while serving: the cold tier, the plans' two
+    # int64 [R] permutations, the warm tag store (three int64 [C] arrays and
+    # the row -> slot dict), and the staged payloads of prefetch_depth
+    # future batches plus the one being consumed: their distinct cold rows,
+    # at most med_hot's share of unique rows per batch (20.5 % of B·L)
+    staged_rows = int(PAPER_UNIQUE_PCT["med_hot"] / 100 * B * L)
+    per_table = (R * D * 4 + 2 * R * 8
+                 + ps_cfg.warm_slots * (3 * 8 + LOC_ENTRY_BYTES)
+                 + (ps_cfg.prefetch_depth + 1) * staged_rows * D * 4)
+    avail = host_available_bytes()
+    rss = {"start": host_rss_bytes()}
+    fit = (avail - HOST_HEADROOM_BYTES) // per_table
+    cut = None
+    if fit < T:
+        cut = {"num_tables": [T, int(fit)],
+               "reason": f"{avail} bytes of host memory available, "
+                         f"{per_table} needed per table"}
+        T = int(fit)
+        emb = dataclasses.replace(emb, num_tables=T)
+        batches = [(d, i[:, :T].copy()) for d, i in batches]
+    t1 = time.perf_counter()
+    host_tables = model.ebc.tables[:T].cpu()
+    model.ebc.tables = None            # free the device copy (64 GB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    to_host_s = time.perf_counter() - t1
+    rss["tables_on_host"] = host_rss_bytes()
+    tiered = DLRM(dataclasses.replace(model.cfg, embedding=emb),
+                  device="cuda", tables=host_tables, seed=0)
+    # the top MLP's input width follows T: after a cut the model keeps its
+    # own, and its logits are not phase serve's
+    tiered.bottom = model.bottom
+    if cut is None:
+        tiered.top = model.top
+    del host_tables
+    pattern = make_pattern("med_hot", R, seed=0)
+    trace = sample_indices(pattern, B, T, L, seed=TRACE_SEED)
+    t1 = time.perf_counter()
+    tiered.ebc.storage.build(ps_cfg, trace=trace)
+    build_s = time.perf_counter() - t1
+    del trace
+    rss["tiers_built"] = host_rss_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    scores = []
+    fused.LAUNCHES = 0
+    kernel.LAUNCHES = 0
+    t1 = time.perf_counter()
+    sess = ServingSession(tiered, batcher=BatcherConfig(max_batch=B,
+                                                        max_wait_s=0.0))
+    warmup_s = time.perf_counter() - t1
+    sess.server.on_batch = lambda batch, s: scores.append(s.copy())
+    for dense, idx in batches:
+        sess.submit_batch(dense, idx)
+    rss["warmed_up"] = host_rss_bytes()
+    sess.drain(timeout_s=deadline_s)
+    rss["served"] = host_rss_bytes()
+    fused_launches, bag_launches = fused.LAUNCHES, kernel.LAUNCHES
+    lat = np.asarray(sess.stats.batch_latencies_s) * 1e3
+    forwards = 1 + len(lat)                       # warmup + served batches
+    check(len(lat) == len(batches) and sess.stats.served == B * len(lat),
+          f"served {sess.stats.served} queries in {len(lat)} batches")
+    check(fused_launches == forwards,
+          f"fused kernel launched {fused_launches} times over {forwards} "
+          f"forwards")
+    logits = np.concatenate(scores)
+    check(bool(np.isfinite(logits).all()), "non-finite logits")
+    max_diff = sub_batch = None
+    if cut is None:
+        max_diff = float(np.abs(logits - serve_logits).max())
+        check(bool(np.allclose(logits, serve_logits, rtol=1e-4, atol=1e-4)),
+              f"tiered logits differ from phase serve's by {max_diff:.3e}")
+    else:
+        # a sub-batch's pooled output against the plain pooling of the same
+        # rows of the host tables
+        idx64 = batches[0][1][:SUB_BATCH]
+        rows = torch.from_numpy(tiered.ebc.storage.ps.cold.tables[
+            np.arange(T)[None, :, None], idx64])          # [64, T, L, D]
+        with torch.no_grad():
+            got = tiered.ebc(idx64).cpu()
+        sub_batch = compare(got, _pool_rows_core(rows, None, emb.combine),
+                            2 * ref.F32_EPS * rows.abs().sum(dim=2),
+                            "tiered sub-batch pooled (after a cut)")
+        del rows
+    st = sess.stats.storage_stats
+    keys = ("total_accesses", "hot_hits", "warm_hits", "cold_misses",
+            "hot_hit_rate", "warm_hit_rate", "cold_miss_rate",
+            "cache_hit_rate", "cold_gathered_rows", "evictions",
+            "insertions", "warm_occupancy", "staged_rows", "prefetch_hits",
+            "prefetch_misses", "queue_depth", "max_queue_depth",
+            "off_critical_frac", "consume_ready", "consume_waited",
+            "consume_wait_s", "consume_overlap_frac")
+    fields = dict(
+        config="dlrm_production", backend="tiered", tables=T, rows=R,
+        dim=D, pooling=L, batch=B, cut=cut, ps_config=dataclasses.asdict(
+            ps_cfg), batches=len(lat), batch_ms=lat.tolist(),
+        p50_batch_ms=float(np.percentile(lat, 50)),
+        p99_batch_ms=float(np.percentile(lat, 99)),
+        fused_launches=fused_launches, bag_kernel_launches=bag_launches,
+        forwards=forwards, logits_max_abs_diff_vs_serve=max_diff,
+        logits_tolerance="rtol=1e-4 atol=1e-4", sub_batch_after_cut=sub_batch,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        device_tier_bytes=ps_cfg.device_bytes(T, D),
+        host_available_bytes=avail, host_bytes_estimate=per_table * T,
+        host_bytes_per_table_estimate=per_table,
+        host_peak_rss_bytes=host_peak_rss_bytes(), host_rss_bytes=rss,
+        host_peak_growth_bytes=(host_peak_rss_bytes() - rss["start"]
+                                if rss["start"] is not None else None),
+        tables_to_host_s=to_host_s,
+        build_s=build_s, warmup_s=warmup_s,
+        stats={k: st[k] for k in keys if k in st})
+    return fields, sess, tiered, batches
+
+
+def phase_kernel_time_fused(sess, tiered, batches) -> dict:
+    """Fused kernel at the serve shape with the warm state serving left:
+    the kernel held to its plain version on every table (pooled within
+    the summation bound, miss lists exactly equal); CUDA-event times of
+    the kernel, its plain version and a torch embedding_bag over
+    [hot; cache] (pooled half only); the bound; and a breakdown of one
+    tiered batch."""
+    ps = sess.storage.ps
+    dense_np, idx_np = batches[0]
+    B, T, L = idx_np.shape
+    D, R = ps.cold.dim, ps.cold.num_rows
+    K, C = ps.num_hot, ps.cfg.warm_slots
+    dev = torch.device("cuda")
+    slots = torch.from_numpy(ps.build_slot_map(idx_np)).to(dev)
+    ids = torch.from_numpy(idx_np).to(dev)
+    hot = ps._hot_dev
+    cache = ps._warm_payload
+    opts = fused.FusedLookupOpts()
+    def run():
+        return fused.launch_tables(cache, slots, ids, None, hot, R, opts)
+    ms = cuda_ms(run, iters=10, warmup=2)
+    raw, mrow, mpos, counts = run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    miss_rows, miss_pos = fused.lists_to_host(mrow, mpos, counts)
+    lists_ms = (time.perf_counter() - t1) * 1e3
+    n_distinct = sum(int(r.size) for r in miss_rows)
+    n_occ = sum(int(p.size) for p in miss_pos)
+
+    def plain():
+        out = []
+        for t in range(T):
+            out.append(fused.fused_warm_lookup_plain(
+                cache[t], slots[:, t], ids[:, t], None, hot[t], num_rows=R))
+            s, r = slots[:, t].reshape(-1), ids[:, t].reshape(-1)
+            miss = torch.nonzero(s == fused.MISS).flatten()
+            torch.unique(r[miss])
+        return torch.stack(out, 1)
+    plain_ms = cuda_ms(plain, iters=1)
+    name = (f"serve shape, served warm state: B={B} T={T} L={L} D={D} "
+            f"K=C={K} f32 sum")
+    held = compare(raw, plain(), _fused_bound(cache, slots, None, hot, "sum"),
+                   name)
+    slots_np = slots.cpu().numpy()
+    want = [fused._miss_list_from_slots(slots_np[:, t], idx_np[:, t], R)
+            for t in range(T)]
+    _check_lists(miss_rows, miss_pos, [w[0] for w in want],
+                 [w[1] for w in want], name)
+    del slots_np, want
+
+    # the library yardstick: F.embedding_bag over [hot; cache] per table,
+    # the slot map as indices and 0/1 weights — the pooled half only
+    both = torch.cat([hot, cache], dim=1).view(-1, D)       # [T(K+C), D]
+    flat = (slots.long().clamp_min(0)
+            + torch.arange(T, device=dev)[None, :, None] * (K + C)).reshape(-1)
+    psw = (slots >= 0).float().reshape(-1)
+    offsets = torch.arange(0, flat.numel(), L, device=dev)
+    library = lambda: F.embedding_bag(flat, both, offsets, mode="sum",  # noqa: E731
+                                      per_sample_weights=psw)
+    library_ms = cuda_ms(library, iters=3)
+    library_err = (library().view(B, T, D) - raw).abs().max().item()
+    del both, flat, psw, offsets
+
+    # bytes the function must move: each distinct hit row once, the slot
+    # map, the row ids at MISS positions, the output, the bitmap pass and
+    # the miss lists; operations: a multiply-add per hit element
+    hit_rows = 0
+    for t in range(T):
+        s = slots[:, t]
+        hit_rows += int(torch.unique(s[s >= 0]).numel())
+    words = -(-R // 32)
+    moved = (hit_rows * D * 4 + slots.numel() * 4 + n_occ * 4
+             + raw.numel() * 4 + T * words * 4 + (n_distinct + n_occ) * 4
+             + counts.numel() * 4)
+    hits = int((slots >= 0).sum())
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = hits * D * 2 / F32_OPS_PER_S * 1e3
+
+    # one tiered batch, step by step (device synchronised at each step)
+    ps.breakdown = {}
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        pooled = tiered.ebc(idx_np)
+    torch.cuda.synchronize()
+    lookup_s = time.perf_counter() - t1
+    breakdown = {k: v * 1e3 for k, v in ps.breakdown.items()}
+    ps.breakdown = None
+    with torch.inference_mode():
+        dense = torch.from_numpy(dense_np).cuda()
+        breakdown["mlps_and_interaction"] = cuda_ms(
+            lambda: tiered.forward_from_pooled(dense, pooled), iters=5)
+    breakdown["lookup_total_host_clock"] = lookup_s * 1e3
+    return dict(
+        shape=[B, T, L, D], hot_rows=K, warm_slots=C, ms=ms,
+        plain_ms=plain_ms, plain_max_abs_err=held["max_abs_err"],
+        plain_max_err_over_bound=held["max_err_over_bound"],
+        miss_lists_equal=True,
+        library_ms=library_ms,
+        library="torch.nn.functional.embedding_bag over [hot; cache] with "
+                "0/1 per_sample_weights: the pooled half only",
+        library_max_abs_diff=library_err, miss_list_copy_ms=lists_ms,
+        hit_positions=hits, distinct_hit_rows=hit_rows,
+        miss_positions=n_occ, distinct_miss_rows=n_distinct,
+        bytes_moved=moved, bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
+        fraction_of_bound=max(bytes_ms, ops_ms) / ms,
+        launches_per_forward=1, breakdown_ms=breakdown)
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--stop-after", default=None,
+                        help="end the run after this phase")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a CUDA device", file=sys.stderr)
@@ -219,21 +764,41 @@ def main() -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          seconds=time.perf_counter() - t0)
 
-    # 2. build
+    def stop(phase: str) -> bool:
+        if args.stop_after == phase:
+            emit("stopped", after=phase,
+                 seconds=time.perf_counter() - t_all)
+        return args.stop_after == phase
+
+    # 2. build: one nvcc per library, started together
     t0 = time.perf_counter()
-    info = kernel.build()
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", path=os.path.relpath(info["path"], ROOT),
-         nvcc_seconds=info["seconds"], cached=info["cached"],
-         ptxas=ptxas, seconds=time.perf_counter() - t0)
+    with ThreadPoolExecutor(2) as ex:
+        infos = list(ex.map(lambda build: build(),
+                            (kernel.build, fused.build)))
+    libs = {}
+    for lib, info in zip(("embedding_bag", "fused_lookup"), infos):
+        libs[lib] = {
+            "path": os.path.relpath(info["path"], ROOT),
+            "nvcc_seconds": info["seconds"], "cached": info["cached"],
+            "ptxas": [ln.strip() for ln in info["log"].splitlines()
+                      if "registers" in ln or "spill" in ln]}
+    emit("build", libraries=libs, seconds=time.perf_counter() - t0)
+    if stop("build"):
+        return 0
 
     # 3. parity
     t0 = time.perf_counter()
     parity = phase_parity()
     emit("parity", **parity, seconds=time.perf_counter() - t0)
 
-    # 4. serve
+    # 4. parity_fused
+    t0 = time.perf_counter()
+    parity_fused = phase_parity_fused()
+    emit("parity_fused", **parity_fused, seconds=time.perf_counter() - t0)
+    if stop("parity_fused"):
+        return 0
+
+    # 5. serve
     t0 = time.perf_counter()
     # shard_pad_tables pads 250 -> 256 tables for a 256-device slice; one
     # card holds whole tables, so no padding here
@@ -313,7 +878,7 @@ def main() -> int:
          .item(), logits_tolerance="rtol=1e-4 atol=1e-4",
          seconds=time.perf_counter() - t0)
 
-    # 5. kernel time at the serve shape
+    # 6. kernel time at the serve shape
     t0 = time.perf_counter()
     tables = model.ebc.tables
     idx_np = batches[0][1]
@@ -362,7 +927,24 @@ def main() -> int:
                        "served_batch_p50": float(np.percentile(lat, 50))},
          seconds=time.perf_counter() - t0)
 
-    # 6. kernels
+    del tables, idx, out_k, run_kernel, plain, library, dense
+    if stop("kernel_time"):
+        return 0
+
+    # 7. serve_tiered: the same weights and batches on the tiered backend
+    t0 = time.perf_counter()
+    fields, sess, tiered, tiered_batches = phase_serve_tiered(
+        model, batches, logits, deadline_s=600.0)
+    del model
+    emit("serve_tiered", **fields, seconds=time.perf_counter() - t0)
+
+    # 8. kernel_time_fused, with the warm state serving left
+    t0 = time.perf_counter()
+    timed = phase_kernel_time_fused(sess, tiered, tiered_batches)
+    sess.close()
+    emit("kernel_time_fused", **timed, seconds=time.perf_counter() - t0)
+
+    # 9. kernels
     print(json.dumps({"kernels": [{
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
@@ -373,7 +955,16 @@ def main() -> int:
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms}]}), flush=True)
+        "library_ms": library_ms}, {
+        "name": "fused_warm_lookup", "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/fused_lookup.cu",
+        "replaces": "src/repro/kernels/embedding_bag/fused.py:266",
+        "launches": fields["fused_launches"],
+        "max_abs_err": max(parity_fused["max_abs_err_f32"],
+                           timed["plain_max_abs_err"]),
+        "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+        "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+        "library_ms": timed["library_ms"]}]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,12 @@ knobs. Every table is pooled by ONE kernel launch over indices [B, T, L]
 executes one or more embedding tables" with the tables on the grid.
 
 Storage is pluggable: `EmbeddingStageConfig.storage` names a backend in the
-`repro_torch.storage` registry (this slice registers `device`: tables fully
-resident in device memory), and `forward()` delegates to
-`self.storage.lookup(...)`.
+`repro_torch.storage` registry (`device`: tables fully resident in device
+memory; `tiered`: the hot/warm/cold parameter server), and `forward()`
+delegates to `self.storage.lookup(...)`. For a host-backed backend
+(`capabilities().device_resident` False) the collection keeps `tables` on
+the host, where they become the backend's cold tier as they are, so the
+host holds the one copy; the pooled output still lands on `device`.
 """
 from __future__ import annotations
 
@@ -90,18 +93,26 @@ class EmbeddingStageConfig:
 
 class EmbeddingBagCollection(nn.Module):
     """Tables [T(+pad), R, D] as the buffer `tables`; `ebc(indices)` ->
-    pooled [B, T, D] through the bound storage backend `self.storage`."""
+    pooled [B, T, D] on `self.device` through the bound storage backend
+    `self.storage`.
+
+    `tables`, when given, are adopted instead of drawn from `generator`
+    (moved to `device` for a device-resident backend, kept on the host
+    otherwise); they must be stored hot-first when `pinned_rows > 0`."""
 
     def __init__(self, cfg: EmbeddingStageConfig,
                  plans: Optional[list[hot_cache.HotPlan]] = None, *,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 tables: Optional[torch.Tensor] = None):
         super().__init__()
         self.cfg = cfg
         device = resolve_device(device)
+        self.device = device
         # Resolve the backend FIRST: unknown names fail before any
         # allocation. Lazy import: storage imports core.embedding.
         from repro_torch import storage as storage_registry
         self.storage = storage_registry.create(cfg.storage, self)
+        resident = self.storage.capabilities().device_resident
         # One plan per table; identity when pinning is off.
         if plans is None:
             plans = [hot_cache.identity_plan(cfg.rows, cfg.pinned_rows)
@@ -114,14 +125,25 @@ class EmbeddingBagCollection(nn.Module):
             torch.as_tensor(np.stack([p.inv_perm for p in plans]),
                             dtype=torch.int32, device=device)
             if cfg.pinned_rows > 0 else None), persistent=False)
+        shape = (cfg.num_tables + cfg.shard_pad_tables, cfg.rows, cfg.dim)
+        if tables is not None:
+            if tuple(tables.shape) != shape or tables.dtype != cfg.torch_dtype:
+                raise ValueError(f"tables {tuple(tables.shape)} "
+                                 f"{tables.dtype} != {list(shape)} "
+                                 f"{cfg.torch_dtype}")
+            self.register_buffer("tables", tables.to(
+                device if resident else "cpu"))
+            return
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        # N(0, 1/D) rows, made on the device from the generator: at the
-        # production size the tables never exist on the host
-        tables = torch.randn(
-            (cfg.num_tables + cfg.shard_pad_tables, cfg.rows, cfg.dim),
-            generator=generator, dtype=cfg.torch_dtype, device=device)
+        # N(0, 1/D) rows, made on the generator's device: a device-resident
+        # collection's tables never exist on the host; a host-backed one
+        # draws the same values, then keeps them on the host
+        tables = torch.randn(shape, generator=generator,
+                             dtype=cfg.torch_dtype, device=generator.device)
         tables.mul_(1.0 / np.sqrt(cfg.dim))
+        if not resident:
+            tables = tables.cpu()
         if cfg.pinned_rows > 0:
             # Store hot-first (offline, one-time — like the paper's pinning
             # kernel launched before the embedding bag kernel).

@@ -30,17 +30,21 @@
 // contributes NaN, as jnp.take's default fill does. Every table offset is
 // 64-bit: T*R*D reaches 1.6e10 elements at the production size.
 //
+// The slice type, the compensated add and the NaN fill live in
+// bag_common.cuh, shared with fused_lookup.cu.
+//
 // Plain-C interface, built with nvcc into a shared library and called from
 // Python through ctypes (kernel.py). The launch goes on the caller's stream,
 // does not synchronise and allocates nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bag_common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using bag_common::add_compensated;
+using bag_common::kFull;
+using bag_common::Slice;
+
 constexpr int kMaxDistance = 16;
 constexpr int kMaxBagsPerBlock = 8;  // 256 threads: room for a 16-deep ring
 
@@ -63,57 +67,6 @@ struct Params {
   int mean;
   int bags_per_block;
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// One lane's share of a row: a 16-byte vector, or a single element where
-// the row's bytes are not a multiple of 16.
-template <typename T, bool VEC> struct Slice;
-
-template <typename T> struct Slice<T, true> {
-  static constexpr int N = 16 / sizeof(T);
-  int4 raw;
-  __device__ __forceinline__ void load(const T* p) {
-    raw = __ldg(reinterpret_cast<const int4*>(p));
-  }
-  __device__ __forceinline__ float get(int i) const {
-    return to_float(reinterpret_cast<const T*>(&raw)[i]);
-  }
-  static __device__ __forceinline__ void store(T* p, const float* acc) {
-    alignas(16) T v[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) v[i] = from_float<T>(acc[i]);
-    *reinterpret_cast<int4*>(p) = *reinterpret_cast<const int4*>(v);
-  }
-};
-
-template <typename T> struct Slice<T, false> {
-  static constexpr int N = 1;
-  T raw;
-  __device__ __forceinline__ void load(const T* p) { raw = *p; }
-  __device__ __forceinline__ float get(int) const { return to_float(raw); }
-  static __device__ __forceinline__ void store(T* p, const float* acc) {
-    *p = from_float<T>(acc[0]);
-  }
-};
-
-// s + c carries a sum; add y to it with the rounding error kept in c.
-__device__ __forceinline__ void add_compensated(float& s, float& c, float y) {
-  const float t = __fadd_rn(s, y);
-  c += fabsf(s) >= fabsf(y) ? __fadd_rn(s - t, y) : __fadd_rn(y - t, s);
-  s = t;
-}
 
 template <typename T, bool VEC, int PD>
 __global__ void __launch_bounds__(32 * kMaxBagsPerBlock) bag_kernel(const Params p) {
@@ -184,7 +137,7 @@ __global__ void __launch_bounds__(32 * kMaxBagsPerBlock) bag_kernel(const Params
         const int o = q - base;
         const int row = __shfl_sync(kFull, cur_i, o);
         float wv = __shfl_sync(kFull, cur_w, o);  // 1 when unweighted
-        if (!in_range(row)) wv = __int_as_float(0x7fc00000);  // NaN
+        if (!in_range(row)) wv = bag_common::quiet_nan();
         add_compensated(wsum, wcomp, wv);
 #pragma unroll
         for (int i = 0; i < N; ++i)
@@ -216,11 +169,9 @@ void launch(const Params& p, int distance, dim3 grid, dim3 block,
   }
 }
 
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
-}
-
 }  // namespace
+
+using bag_common::aligned16;
 
 extern "C" {
 
@@ -248,9 +199,7 @@ int embedding_bag_launch(const void* tables, long long table_stride,
                    (hot_row_stride * item) % 16 == 0 &&
                    (hot_table_stride * item) % 16 == 0 && aligned16(tables) &&
                    aligned16(hot) && aligned16(out);
-  int distance = 1;  // the largest power of two <= prefetch_distance, <= 16
-  while (distance * 2 <= prefetch_distance && distance * 2 <= kMaxDistance)
-    distance *= 2;
+  const int distance = bag_common::ring_depth(prefetch_distance, kMaxDistance);
   const dim3 grid((unsigned)blocks, (unsigned)num_tables);
   const dim3 block(32 * bags_per_block);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -39,6 +39,7 @@ LAUNCHES = 0
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "embedding_bag.cu",)
+HEADERS = (CSRC / "bag_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -78,25 +79,26 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError(
         "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
-        "embedding-bag kernel is built from source and has no fallback")
+        "kernels are built from source and have no fallback")
 
 
-def build() -> dict:
-    """Compile the kernel library unless this exact source is built.
+def build_library(stem: str, sources, headers=()) -> dict:
+    """Compile `sources` into `lib{stem}_{hash}.so` unless this exact
+    source (headers and flags included) is built.
 
     Returns {'path', 'seconds', 'cached', 'log'}; `log` holds nvcc's output
     (ptxas register and spill counts)."""
     nvcc = _nvcc()
     digest = hashlib.sha256()
-    for src in SOURCES:
+    for src in (*sources, *headers):
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"libembedding_bag_{digest.hexdigest()[:16]}.so"
+    path = BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
     if path.exists():
         return {"path": str(path), "seconds": 0.0, "cached": True, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -106,6 +108,11 @@ def build() -> dict:
     os.replace(tmp, path)
     return {"path": str(path), "seconds": seconds, "cached": False,
             "log": proc.stdout + proc.stderr}
+
+
+def build() -> dict:
+    """Compile the embedding-bag kernel library (see `build_library`)."""
+    return build_library("embedding_bag", SOURCES, HEADERS)
 
 
 def _library():

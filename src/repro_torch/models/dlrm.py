@@ -44,11 +44,12 @@ class DLRMConfig:
 class DLRM(nn.Module):
     """`DLRM(cfg, device=..., seed=...)` makes random weights on `device`
     from a `torch.Generator`; `repro_torch.convert.load_reference_params`
-    loads the TPU path's weights instead. Submodules: `bottom`, `ebc`,
+    loads the TPU path's weights instead, and `tables=` hands the
+    embedding collection existing tables. Submodules: `bottom`, `ebc`,
     `top`."""
 
     def __init__(self, cfg: DLRMConfig, plans=None, *, device="cuda",
-                 seed: int = 0):
+                 seed: int = 0, tables: torch.Tensor | None = None):
         super().__init__()
         if cfg.bottom_mlp[-1] != cfg.embedding.dim:
             raise ValueError("bottom MLP output must match embedding dim "
@@ -60,7 +61,8 @@ class DLRM(nn.Module):
         self.bottom = MLPTower((cfg.dense_features, *cfg.bottom_mlp), dt,
                                generator=gen, device=device)
         self.ebc = EmbeddingBagCollection(cfg.embedding, plans,
-                                          device=device, generator=gen)
+                                          device=device, generator=gen,
+                                          tables=tables)
         self.top = MLPTower((cfg.interaction_dim(), *cfg.top_mlp), dt,
                             generator=gen, device=device)
         t = cfg.embedding.num_tables + 1
@@ -69,7 +71,9 @@ class DLRM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.ebc.tables.device
+        """Where the MLPs run and the pooled embeddings land (the tables
+        of a host-backed storage backend stay on the host)."""
+        return self.ebc.device
 
     def _interact(self, bottom_out: torch.Tensor, pooled: torch.Tensor):
         """bottom_out: [B, D]; pooled: [B, T, D] -> interaction features."""

@@ -11,11 +11,19 @@ the forward engine, warmup, and storage lifecycle around this loop.
 The engine returns scores as a tensor, which may lie on the card; the loop
 copies them to the host itself (`.cpu().numpy()`), and that copy is the
 point where the batch's device work is waited for.
+
+With a storage backend bound, the loop also stages the NEXT batch's cache
+misses before executing the current one (prefetch overlap) and re-plans
+the hot set every `refresh_every_batches` batches, on a helper thread when
+`async_refresh=True` — all through the protocol verbs. The replay clock of
+the TPU path comes with `traffic/` (ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
+import itertools
 import time
 from typing import Callable, Optional
 
@@ -148,18 +156,24 @@ class ServeStats:
     served: int = 0
     batch_latencies_s: list = dataclasses.field(default_factory=list)
     query_latencies_s: list = dataclasses.field(default_factory=list)
+    # refreshes whose planning phase ran on the helper thread
+    async_refreshes: int = 0
     # admission control: queries shed at submit (typed rejections, by
     # reason) and the request-queue length gauge, mirrored from the
     # batcher after every submit/poll
     shed_queries: int = 0
     shed_reasons: dict = dataclasses.field(default_factory=dict)
     request_queue_len: int = 0
-    # the storage backend's stats(), mirrored after every executed batch
-    # and reported by percentiles(). Empty for the `device` backend.
+    # the storage backend's stats() — for `tiered` the hot/warm hit rates,
+    # cold misses, evictions, refreshes, the prefetch queue and overlap
+    # counters and the degraded-mode counters — mirrored after every
+    # executed batch and reported by percentiles(). Empty for `device`.
     storage_stats: dict = dataclasses.field(default_factory=dict)
 
     def percentiles(self) -> dict:
-        """Latency percentiles, admission gauges and the backend's stats."""
+        """Latency percentiles, admission gauges and the backend's stats.
+        `off_critical_frac` (tiered) is the fraction of cold-missed rows
+        whose host gather never ran on the lookup critical path."""
         if not self.query_latencies_s:
             return {}
         q = np.asarray(self.query_latencies_s) * 1e3
@@ -175,6 +189,8 @@ class ServeStats:
         out["shed_queries"] = self.shed_queries
         out["request_queue_len"] = self.request_queue_len
         out.update(self.storage_stats)
+        if self.async_refreshes:
+            out["async_refreshes"] = self.async_refreshes
         return out
 
 
@@ -182,18 +198,35 @@ class InferenceServer:
     """forward(dense [B,F], indices [B,T,L]) -> scores [B] (a tensor).
 
     Pass the model's storage backend as `storage` (any
-    `repro_torch.storage.EmbeddingStorage`) to have its `stats()` mirrored
-    into `stats.percentiles()`. The TPU path's prefetch staging and hot-set
-    refresh driving come with the tiered backend (ROADMAP.md Queue 1).
+    `repro_torch.storage.EmbeddingStorage`): the server then (a) stages the
+    NEXT pending batch's cache misses before executing the current one
+    (prefetch overlap), (b) re-plans the hot set every
+    `refresh_every_batches` executed batches from the backend's sliding
+    traffic window (paper §IV-C periodic re-pinning) — on a helper thread
+    when `async_refresh=True` — and (c) mirrors the backend's counters into
+    `stats.percentiles()`. All of it goes through the protocol verbs, so
+    backends that cannot stage or refresh degrade to no-ops.
     """
 
     def __init__(self, forward: Callable, batcher_cfg: BatcherConfig,
-                 sla_ms: float = 50.0, storage=None):
+                 sla_ms: float = 50.0, storage=None,
+                 refresh_every_batches: int = 0,
+                 async_refresh: bool = False):
         self.forward = forward
         self.batcher = Batcher(batcher_cfg)
         self.sla_s = sla_ms / 1e3
         self.stats = ServeStats()
         self.storage = storage
+        if (async_refresh and storage is not None
+                and not storage.capabilities().refreshable):
+            from repro_torch.storage import require_capability
+            require_capability(storage, "refreshable")
+        self.refresh_every_batches = refresh_every_batches
+        self.async_refresh = async_refresh
+        self._executed_batches = 0
+        self._refresh_pool: Optional[
+            concurrent.futures.ThreadPoolExecutor] = None
+        self._refresh_future: Optional[concurrent.futures.Future] = None
         # optional response tap: called with (batch, scores[:len(batch)])
         # after every executed batch, outside the timed region
         self.on_batch: Optional[Callable] = None
@@ -210,17 +243,75 @@ class InferenceServer:
             self.stats.shed_reasons = dict(self.batcher.shed_reasons)
             self.stats.request_queue_len = len(self.batcher.queue)
 
+    @staticmethod
+    def _assemble_indices(batch: list[Query], b: int) -> np.ndarray:
+        """[b, T, L] int32 index tensor; rows past len(batch) stay zero
+        (the padding hint_valid() later excludes from backend stats).
+        Shared by _assemble and _stage_next so staged indices always match
+        the upcoming lookup's bit for bit (consume() matches on
+        equality)."""
+        idx = np.zeros((b,) + batch[0].indices.shape, np.int32)
+        for i, q in enumerate(batch):
+            idx[i] = q.indices
+        return idx
+
     def _assemble(self, batch: list[Query]):
         """dense [b, F] float32 and indices [b, T, L] int32; rows past
         len(batch) stay zero (batcher padding)."""
         cfg = self.batcher.cfg
         b = cfg.max_batch if cfg.pad_to_max else len(batch)
         dense = np.zeros((b,) + batch[0].dense.shape, np.float32)
-        idx = np.zeros((b,) + batch[0].indices.shape, np.int32)
         for i, q in enumerate(batch):
             dense[i] = q.dense
-            idx[i] = q.indices
-        return dense, idx
+        return dense, self._assemble_indices(batch, b)
+
+    def _stage_next(self) -> None:
+        """Prefetch: resolve the next FULL pending batch's cold misses now,
+        so its host gathers overlap the current batch's compute. Only a
+        full batch is staged — its contents are then FIFO-deterministic, so
+        the staged indices exactly match the upcoming lookup. Backpressure
+        is checked before any assembly work, and only the indices are
+        assembled (staging never needs the dense features)."""
+        q = self.batcher.queue
+        b = self.batcher.cfg.max_batch
+        if len(q) < b or not self.storage.can_stage():
+            return
+        nxt = list(itertools.islice(q, b))
+        self.storage.stage(self._assemble_indices(nxt, b))
+
+    # -- async refresh driver -----------------------------------------------
+    def _start_refresh(self) -> None:
+        """Kick off re-pinning. Sync mode blocks here; async mode snapshots
+        the traffic window on this thread and plans on a helper, leaving
+        installation to a later poll()."""
+        if not self.async_refresh:
+            self.storage.refresh()
+            return
+        if self._refresh_future is not None:    # previous plan still in
+            return                              # flight: don't pile up
+        if self._refresh_pool is None:
+            self._refresh_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ps-refresh")
+        window = self.storage.refresh_window()  # snapshot on serving thread
+        self._refresh_future = self._refresh_pool.submit(
+            self.storage.plan_refresh, window)
+
+    def _install_refresh_if_ready(self) -> None:
+        """Install a finished helper-thread plan (serving thread only —
+        install_refresh mutates tier state). Planner exceptions re-raise
+        here, on the serving thread."""
+        if self._refresh_future is not None and self._refresh_future.done():
+            self._install_pending_refresh()
+
+    def _install_pending_refresh(self) -> None:
+        """Take the in-flight future (blocking if unfinished), install its
+        plan — a None plan still applies the scheduled warm-tier decay,
+        exactly like a sync refresh — count a real re-pin, and re-mirror
+        the backend's stats. Shared by the poll() path and close()."""
+        fut, self._refresh_future = self._refresh_future, None
+        if self.storage.install_refresh(fut.result())["replanned"]:
+            self.stats.async_refreshes += 1
+        self.stats.storage_stats = self.storage.stats()
 
     def poll(self, force: bool = False) -> int:
         """Execute at most one batch; returns #queries served."""
@@ -229,6 +320,18 @@ class InferenceServer:
             return 0
         n = len(batch)
         dense, idx = self._assemble(batch)
+        if self.storage is not None:
+            # both run outside the timed region. Install a finished
+            # refresh FIRST so staging probes the post-refresh tier state
+            # (staging against the old plan would prefetch rows about to
+            # become hot and skip warm rows about to be invalidated).
+            self._install_refresh_if_ready()
+            # staging models work that overlaps the PREVIOUS batch's
+            # compute, so it must not bill this batch
+            self._stage_next()
+            # batcher padding is not traffic — keep it out of cache stats
+            # and the refresh window
+            self.storage.hint_valid(n)
         t0 = time.perf_counter()
         # the copy to the host waits for the batch's device work
         scores = self.forward(dense, idx).cpu().numpy()
@@ -243,6 +346,11 @@ class InferenceServer:
         self.stats.served += n
         self.stats.request_queue_len = len(self.batcher.queue)
         if self.storage is not None:
+            self._executed_batches += 1
+            if (self.refresh_every_batches
+                    and self._executed_batches
+                    % self.refresh_every_batches == 0):
+                self._start_refresh()
             self.stats.storage_stats = self.storage.stats()
         return n
 
@@ -257,6 +365,21 @@ class InferenceServer:
                              + self.batcher.cfg.max_wait_s)
             now = time.perf_counter()
             self.poll(force=now >= head_deadline or now - t0 >= timeout_s)
+
+    def close(self) -> None:
+        """Finish any in-flight async refresh — wait for the planner,
+        install its plan, and re-mirror the backend's stats so the final
+        report sees it — then stop the helper thread. Planner exceptions
+        re-raise here, matching the poll() path. Does NOT close the
+        storage backend. Idempotent."""
+        try:
+            if self._refresh_future is not None:
+                self._install_pending_refresh()
+        finally:
+            # a raising planner must not leak the helper pool/thread
+            if self._refresh_pool is not None:
+                self._refresh_pool.shutdown(wait=True)
+                self._refresh_pool = None
 
     def sla_violations(self) -> int:
         return int(np.sum(np.asarray(self.stats.query_latencies_s)

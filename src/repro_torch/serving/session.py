@@ -5,12 +5,16 @@ capability descriptor alone:
 
   * **engine** — device-resident backends get one eager forward under
     `torch.inference_mode()` that moves each batch to the model's device
-    and reads the model's current tensors on every call.
-  * **loop** — an `InferenceServer` batches queries, runs the engine and
-    mirrors the backend's `stats()`.
+    and reads the model's current tensors on every call. Host-backed
+    backends (`tiered`) get the split engine: the host lookup returns the
+    pooled rows on the card, then `forward_from_pooled` runs the rest.
+  * **loop** — an `InferenceServer` batches queries, runs the engine,
+    drives prefetch staging and (async) hot-set refresh through the
+    protocol verbs, and mirrors the backend's `stats()`.
   * **lifecycle** — warmup runs the engine once on a zero batch (building
-    the kernel) then `flush()` + `reset_stats()` so synthetic traffic never
-    pollutes the counters; `close()` closes the storage.
+    the kernels) then `flush()` + `reset_stats()` so synthetic traffic never
+    pollutes the caches or counters; `close()` installs an in-flight
+    refresh plan, stops the refresh helper and closes the storage.
 
 Typical use:
 
@@ -20,10 +24,9 @@ Typical use:
         print(s.percentiles())
 
 Not ported yet, and refused with `NotImplementedError`: `auto_tune=`
-(ps/tuning.py), `slo=` (serving/slo.py), `controllers=` (serving/config.py,
-including the online-update stream) and host-backed storage backends
-(the tiered parameter server). ROADMAP.md Queue 1 names the items. Hot-set
-refresh and the replay clock come with them.
+(ps/tuning.py), `slo=` (serving/slo.py) and `controllers=`
+(serving/config.py, including the online-update stream). ROADMAP.md
+Queue 1 names the items. The replay clock comes with them.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 
 from repro_torch.serving.server import (BatcherConfig, InferenceServer, Query,
                                         QueryShedError)
+from repro_torch.storage import require_capability
 
 
 class ServingSession:
@@ -42,6 +46,8 @@ class ServingSession:
     def __init__(self, model, *,
                  batcher: Optional[BatcherConfig] = None,
                  sla_ms: float = 50.0,
+                 refresh_every_batches: int = 0,
+                 async_refresh: bool = False,
                  auto_tune=None,
                  slo=None,
                  controllers=None,
@@ -56,10 +62,16 @@ class ServingSession:
                     f"ROADMAP.md Queue 1 {item}")
         self.model = model
         self.storage = model.ebc.storage
+        caps = self.storage.capabilities()
+        if (async_refresh or refresh_every_batches) and not caps.refreshable:
+            # fail fast instead of silently never re-pinning
+            require_capability(self.storage, "refreshable")
         batcher = batcher if batcher is not None else BatcherConfig()
         self.server = InferenceServer(
-            self._build_engine(self.storage.capabilities()), batcher,
-            sla_ms=sla_ms, storage=self.storage)
+            self._build_engine(caps), batcher, sla_ms=sla_ms,
+            storage=self.storage,
+            refresh_every_batches=refresh_every_batches,
+            async_refresh=async_refresh)
         self._closed = False
         self._next_qid = 0
         if warmup:
@@ -69,12 +81,19 @@ class ServingSession:
     def _build_engine(self, caps):
         """Pick the forward shape from the capability descriptor — the only
         place residency is ever consulted."""
-        if not caps.device_resident:
-            raise NotImplementedError(
-                f"storage backend {self.storage.name!r} is host-backed; its "
-                f"split engine comes with the tiered parameter server "
-                f"(ROADMAP.md Queue 1 item 6)")
         model = self.model
+        if not caps.device_resident:
+            def split_forward(dense: np.ndarray,
+                              idx: np.ndarray) -> torch.Tensor:
+                # the host lookup (numpy indices straight into the tiers)
+                # returns pooled rows on the model's device; parameters are
+                # read on every call, as in the device engine
+                with torch.no_grad():
+                    pooled = model.ebc(idx)
+                with torch.inference_mode():
+                    return model.forward_from_pooled(
+                        torch.from_numpy(dense).to(model.device), pooled)
+            return split_forward
 
         def forward(dense: np.ndarray, idx: np.ndarray) -> torch.Tensor:
             # eager, and reading the module's tensors on every call: an
@@ -150,11 +169,15 @@ class ServingSession:
 
     # -- lifecycle ----------------------------------------------------------
     def close(self) -> None:
-        """Close the storage backend. Idempotent."""
+        """Install any in-flight refresh plan, stop the refresh helper,
+        then close the storage backend (prefetch workers). Idempotent."""
         if self._closed:
             return
         self._closed = True
-        self.storage.close()
+        try:
+            self.server.close()
+        finally:
+            self.storage.close()
 
     def __enter__(self) -> "ServingSession":
         return self

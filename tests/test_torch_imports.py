@@ -28,8 +28,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_walk_sees_the_package():
     assert len(FILES) > 15
-    assert any(f.name == "embedding_bag.cu" for f in
-               (REPO / "src" / "repro_torch").rglob("*.cu"))
+    sources = {f.name for f in (REPO / "src" / "repro_torch").rglob("*.cu")}
+    assert {"embedding_bag.cu", "fused_lookup.cu"} <= sources
 
 
 def test_banned_import_is_caught(tmp_path):

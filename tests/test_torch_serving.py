@@ -152,30 +152,54 @@ def test_unported_session_options_raise(kwarg, item):
 
 
 def test_host_backed_backend_raises():
+    """A backend whose capabilities say host-backed gets the split engine:
+    the session serves it through `ebc(...)` then `forward_from_pooled`,
+    and the scores equal the device engine's on the same weights."""
+    calls = []
+
     @storage.register("host_probe")
     class HostProbe(storage.DeviceStorage):
         def capabilities(self):
             return storage.StorageCapabilities(device_resident=False)
+
+        def lookup(self, indices, weights=None, *, pre_remapped=False):
+            calls.append(type(indices))
+            return super().lookup(torch.as_tensor(indices), weights,
+                                  pre_remapped=pre_remapped)
     try:
-        cfg = DLRMConfig(dense_features=F, bottom_mlp=(DIM,), top_mlp=(1,),
-                         embedding=EmbeddingStageConfig(
-                             num_tables=2, rows=10, dim=DIM, pooling=2,
-                             storage="host_probe"))
-        with pytest.raises(NotImplementedError, match="item 6"):
-            ServingSession(DLRM(cfg, device="cpu"), warmup=False)
+        stage = dict(num_tables=2, rows=10, dim=DIM, pooling=2)
+        mlp = dict(dense_features=F, bottom_mlp=(DIM,), top_mlp=(1,))
+        models = [DLRM(DLRMConfig(embedding=EmbeddingStageConfig(
+            **stage, storage=name), **mlp), device="cpu")
+            for name in ("device", "host_probe")]
+        assert models[1].ebc.tables.device.type == "cpu"
+        dense = np.random.default_rng(0).normal(size=(3, F)).astype(
+            np.float32)
+        idx = np.random.default_rng(1).integers(0, 10, (3, 2, 2)).astype(
+            np.int32)
+        got = []
+        for model in models:
+            with ServingSession(model, batcher=BatcherConfig(
+                    max_batch=4, max_wait_s=0.0)) as sess:
+                got.append(_tap(sess))
+                sess.submit_batch(dense, idx)
+                sess.drain()
+        assert got[0] == got[1] and len(got[1]) == 3
+        # the host lookup takes the batch's numpy indices as they are
+        assert calls and all(c is np.ndarray for c in calls)
     finally:
         storage.unregister("host_probe")
 
 
 def test_registry_misuse_is_loud():
-    assert storage.available() == ["device"]
+    assert storage.available() == ["device", "tiered"]
     with pytest.raises(ValueError, match="already registered"):
         storage.register("device")(storage.DeviceStorage)
     with pytest.raises(TypeError, match="not an EmbeddingStorage"):
         storage.register("not_storage")(object)
     assert "not_storage" not in storage.available()
-    with pytest.raises(storage.UnknownBackendError, match="device"):
-        storage.resolve("tiered")
+    with pytest.raises(storage.UnknownBackendError, match="tiered"):
+        storage.resolve("sharded")
 
 
 def test_backend_stats_mirror_into_percentiles():
