@@ -11,11 +11,15 @@ and the script exits non-zero:
                   sources here, one nvcc each, in parallel
   3. parity       kernel vs its plain version (ref.embedding_bag_ref) on the
                   card: sum/mean, weights on/off, num_hot 0/>0, f32/bf16,
-                  ragged B, vector and scalar D, out-of-range indices, and
-                  one table at the serve shape (R=500K, B=2048, L=150, D=128)
+                  ragged B at every bags-per-block value, vector and scalar
+                  D, D=256 (two row passes), L=1, L under the ring depth,
+                  L=257, ring depths 2-16, out-of-range indices, one table
+                  at the serve shape (R=500K, B=2048, L=150, D=128) and the
+                  completion shape (T=1, B=2048, L=150) through its caller
   4. parity_fused the fused kernel vs fused_warm_lookup_plain on the card:
-                  sum/mean, weights on/off, hot K 0/>0, all-hit, mixed and
-                  all-miss slot maps, PAD rows, ragged B, D=128 and D=33,
+                  sum/mean, weights on/off, hot K 0/>0, all-hit, mixed,
+                  PAD and all-miss slot maps, ragged B at every
+                  bags-per-block value, D=128, 256 and 33, L=1, 5, 24, 257,
                   T=3 in one launch, a bad slot and a bad row (NaN), bf16;
                   one table at the serve shape with a warm cache; and the
                   law on a small model: tiered pooled output equals the
@@ -25,8 +29,13 @@ and the script exits non-zero:
                   the kernel launches once per forward; a 64-query
                   sub-batch's logits match the plain path
   6. kernel_time  kernel, plain version and torch's embedding_bag at the
-                  serve shape (CUDA events), the memory bound, and a
-                  breakdown of one batch's time
+                  serve shape (CUDA events), the memory bound, the
+                  registers and resident blocks per SM of the instantiation
+                  launched, and a breakdown of one batch's time
+  6b. kernel_diag the bag kernel at the serve shape on four index sets
+                  (served, all distinct, L2-resident, one row per table),
+                  the completion shape, and the fused kernel's two passes
+                  on a slot map made from the served batch
   7. serve_tiered the same weights and the same 3 batches on the `tiered`
                   backend (hot 50K + warm 50K rows per table on the card,
                   the cold tier on the host, async prefetch); the fused
@@ -35,14 +44,18 @@ and the script exits non-zero:
   8. kernel_time_fused  at the serve shape with the warm state serving
                   left: the fused kernel held to its plain version on all
                   tables (pooled within the bound, miss lists exact); its
-                  time, the plain version's and a torch embedding_bag's
+                  time (and its pool and list passes apart), the plain
+                  version's and a torch embedding_bag's
                   over [hot; cache] (pooled half only); the bound; and a
                   breakdown of one tiered batch
-  9. kernels      one line per ported kernel (the PERF.md rows)
+  9. kernels      one line per ported kernel (the PERF.md rows), with
+                  registers, blocks per SM and fraction of the bound
 
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
 `--stop-after PHASE` ends the run after that phase (a short first call
 for a new kernel); the result lines are then not printed.
+`--geometry-sweep` makes kernel_diag also time both kernels at each of
+seven launch geometries (bags per block x ring depth).
 """
 from __future__ import annotations
 
@@ -136,6 +149,36 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def fused_pass_ms(cache, slots, rows, hot, num_rows, opts,
+                  iters: int) -> tuple[float, float]:
+    """CUDA-event times of the fused lookup's two kernels apart: the
+    gather-and-pool pass (`fused.pool_tables`) and the miss-list pass
+    (`fused.list_tables`, on the pool pass's counts and bitmap)."""
+    pool = lambda: fused.pool_tables(cache, slots, rows, None, hot,  # noqa: E731
+                                     num_rows, opts)
+    pool_ms = cuda_ms(pool, iters=iters)
+    _, bag_miss, bitmap = pool()
+    lists_ms = cuda_ms(lambda: fused.list_tables(slots, rows, bag_miss,
+                                                 bitmap, num_rows),
+                       iters=iters)
+    return pool_ms, lists_ms
+
+
+def check_geometry(opts, info: dict, dim: int, itemsize: int,
+                   weighted: bool, name: str) -> None:
+    """Hold the launch geometry's accounting (`kernel.LaunchGeometry`:
+    ring depth, bags per block, dynamic shared bytes) to what the library
+    reports it launched. The scalar path (row bytes not a multiple of 16)
+    has no ring and reports depth 0."""
+    vec = dim * itemsize % 16 == 0
+    want = {"ring_depth": opts.ring_depth() if vec else 0,
+            "bags_per_block": opts.batch_block,
+            "dynamic_shared_bytes": opts.shared_bytes(dim, itemsize,
+                                                      weighted)}
+    got = {k: info[k] for k in want}
+    check(got == want, f"{name}: launched {got}, the accounting says {want}")
+
+
 def compare(got, want, bound, name: str) -> dict:
     """|got - want| <= bound elementwise; NaN only where `want` is NaN."""
     got, want, bound = got.float(), want.float(), bound.float()
@@ -173,6 +216,11 @@ def phase_parity() -> dict:
         opts = kernel.EmbeddingBagOpts(prefetch_distance=pd, batch_block=bb,
                                        num_hot=num_hot, mode=mode)
         got = kernel.embedding_bag_cuda(tab, idx, w, opts)
+        name = (f"{str(dtype)[6:]} D={dim} L={pooling} {mode} "
+                f"w={int(weighted)} hot={num_hot} pd={pd} bb={bb} B={batch}"
+                + (" bad_rows" if bad_rows else ""))
+        check_geometry(opts, kernel.last_launch_info(), dim,
+                       tab.element_size(), weighted, name)
         torch.cuda.synchronize()
         want, bound = [], []
         for t in range(tables):
@@ -186,9 +234,6 @@ def phase_parity() -> dict:
             want[batch - 1, tables - 1] = float("nan")
         if dtype == torch.bfloat16:   # one rounding of the f32 result
             bound = bound + 2.0 ** -8 * (want.abs() + bound)
-        name = (f"{str(dtype)[6:]} D={dim} L={pooling} {mode} "
-                f"w={int(weighted)} hot={num_hot} pd={pd} bb={bb} B={batch}"
-                + (" bad_rows" if bad_rows else ""))
         results.append(compare(got, want, bound, name))
 
     for dtype, dim, pooling in ((torch.float32, 128, 70),
@@ -203,6 +248,20 @@ def phase_parity() -> dict:
         case(torch.float32, 128, 40, "mean", True, 50, batch=29, pd=pd, bb=bb)
     case(torch.float32, 128, 20, "sum", False, 0, bad_rows=True)
     case(torch.float32, 33, 20, "mean", True, 10, bad_rows=True)
+    # the shared-memory ring's geometry: D=256 (two 512-byte passes), L=1,
+    # L shorter than the ring, L=257 (past two 32-lookup windows), ragged
+    # B at every bags-per-block value, ring depths 2-16
+    for dim, pooling in ((256, 40), (128, 1), (128, 5), (128, 257),
+                         (256, 257)):
+        case(torch.float32, dim, pooling, "sum", False, 100)
+        case(torch.float32, dim, pooling, "mean", True, 100)
+    case(torch.float32, 256, 70, "sum", False, 0, bad_rows=True)
+    for pd in (2, 4, 16):
+        case(torch.float32, 128, 3, "sum", False, 0, pd=pd)
+        case(torch.float32, 128, 100, "mean", True, 0, pd=pd)
+    for bb in range(1, 9):
+        case(torch.float32, 128, 40, "sum", False, 50, batch=29, bb=bb)
+    case(torch.bfloat16, 256, 257, "mean", True, 100)
 
     # the single-table wrappers in ops go through the same kernel
     tab = torch.randn((1000, 128), generator=gen, device=dev)
@@ -226,6 +285,19 @@ def phase_parity() -> dict:
         got[:, 0], ref.embedding_bag_ref(tab[0], idx[:, 0]),
         ref.summation_bound(tab[0], idx[:, 0]),
         "serve shape R=500000 B=2048 L=150 D=128 f32 sum"))
+    # the completion shape, through its caller: T=1, 2048 bags of 150 rows
+    # read once, pooled by fused.pool_bag_rows
+    n, pooling, dim = 2048, 150, 128
+    bag_rows = torch.randn((n, pooling, dim), generator=gen, device=dev)
+    flat = bag_rows.view(n * pooling, dim)
+    ar = torch.arange(n * pooling, device=dev).view(n, pooling)
+    for mode in ("sum", "mean"):
+        results.append(compare(
+            fused.pool_bag_rows(bag_rows, mode=mode),
+            ref.embedding_bag_ref(flat, ar, mode=mode),
+            ref.summation_bound(flat, ar, mode=mode),
+            f"completion shape T=1 B={n} L={pooling} D={dim} f32 {mode}"))
+    del bag_rows, flat, ar
     f32 = [r for r in results if not r["case"].startswith("bfloat16")]
     return {"cases": len(results),
             "max_abs_err_f32": max(r["max_abs_err"] for r in f32),
@@ -304,7 +376,7 @@ def phase_parity_fused() -> dict:
     results = []
 
     def case(dtype, dim, pooling, mode, weighted, num_hot, mix, batch=13,
-             tables=3, rows=1000, cache_rows=200, bad=False):
+             tables=3, rows=1000, cache_rows=200, bad=False, bb=8):
         cache = torch.randn((tables, cache_rows, dim), generator=gen,
                             device=dev).to(dtype)
         hot = (torch.randn((tables, num_hot, dim), generator=gen,
@@ -318,6 +390,9 @@ def phase_parity_fused() -> dict:
             slots = hits
         elif mix == "miss":
             slots = torch.full_like(ids, fused.MISS)
+        elif mix == "pad":   # hits and PAD positions, no miss
+            slots = torch.where(draw < 0.5, torch.full_like(ids, fused.PAD),
+                                hits)
         else:   # mixed: misses, PAD positions and two all-PAD bags
             slots = torch.where(draw < 0.4, torch.full_like(ids, fused.MISS),
                                 hits)
@@ -331,9 +406,14 @@ def phase_parity_fused() -> dict:
         slots, ids = slots.contiguous(), ids.contiguous()
         w = (torch.rand(ids.shape, generator=gen, device=dev)
              if weighted else None)
-        opts = fused.FusedLookupOpts()
+        opts = fused.FusedLookupOpts(batch_block=bb)
         raw, mrow, mpos, counts = fused.launch_tables(cache, slots, ids, w,
                                                       hot, rows, opts)
+        name = (f"{str(dtype)[6:]} D={dim} L={pooling} {mode} "
+                f"w={int(weighted)} hot={num_hot} {mix} B={batch} T={tables}"
+                f" bb={bb}" + (" bad" if bad else ""))
+        check_geometry(opts, fused.last_launch_info(), dim,
+                       cache.element_size(), weighted, name)
         got = fused.mean_epilogue(raw, w, pooling, mode)
         got_rows, got_pos = fused.lists_to_host(mrow, mpos, counts)
         torch.cuda.synchronize()
@@ -348,9 +428,6 @@ def phase_parity_fused() -> dict:
             roundings = 2 if mode == "mean" else 1
             bound = bound + roundings * 2.0 ** -8 * (
                 want.abs().nan_to_num() + bound)
-        name = (f"{str(dtype)[6:]} D={dim} L={pooling} {mode} "
-                f"w={int(weighted)} hot={num_hot} {mix} B={batch} T={tables}"
-                + (" bad" if bad else ""))
         if bad:
             check(bool(torch.isnan(got[0, 0]).all()
                        and torch.isnan(got[batch - 1, tables - 1]).all()),
@@ -369,6 +446,15 @@ def phase_parity_fused() -> dict:
     case(torch.float32, 33, 5, "mean", True, 0, "mixed", bad=True)
     case(torch.bfloat16, 128, 40, "mean", True, 64, "mixed")
     case(torch.bfloat16, 36, 9, "sum", False, 0, "mixed")
+    # the shared-memory ring's geometry, as in phase parity
+    for dim, pooling in ((256, 40), (128, 1), (128, 5), (128, 257)):
+        for mix in ("mixed", "pad", "miss"):
+            case(torch.float32, dim, pooling, "sum", False, 64, mix)
+            case(torch.float32, dim, pooling, "mean", True, 0, mix)
+    case(torch.float32, 256, 70, "sum", True, 64, "mixed", bad=True)
+    for bb in range(1, 9):
+        case(torch.float32, 128, 40, "sum", False, 64, "mixed", batch=29,
+             bb=bb)
 
     # the single-table wrapper, cuda against plain
     cache = torch.randn((300, 64), generator=gen, device=dev)
@@ -648,10 +734,13 @@ def phase_kernel_time_fused(sess, tiered, batches) -> dict:
     hot = ps._hot_dev
     cache = ps._warm_payload
     opts = fused.FusedLookupOpts()
-    def run():
-        return fused.launch_tables(cache, slots, ids, None, hot, R, opts)
+    run = lambda: fused.launch_tables(cache, slots, ids, None, hot, R,  # noqa: E731
+                                      opts)
     ms = cuda_ms(run, iters=10, warmup=2)
+    pool_ms, lists_ms_dev = fused_pass_ms(cache, slots, ids, hot, R, opts,
+                                          iters=5)
     raw, mrow, mpos, counts = run()
+    info = fused.last_launch_info()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     miss_rows, miss_pos = fused.lists_to_host(mrow, mpos, counts)
@@ -724,7 +813,8 @@ def phase_kernel_time_fused(sess, tiered, batches) -> dict:
     breakdown["lookup_total_host_clock"] = lookup_s * 1e3
     return dict(
         shape=[B, T, L, D], hot_rows=K, warm_slots=C, ms=ms,
-        plain_ms=plain_ms, plain_max_abs_err=held["max_abs_err"],
+        pool_pass_ms=pool_ms, list_pass_ms=lists_ms_dev, plain_ms=plain_ms,
+        plain_max_abs_err=held["max_abs_err"],
         plain_max_err_over_bound=held["max_err_over_bound"],
         miss_lists_equal=True,
         library_ms=library_ms,
@@ -736,14 +826,146 @@ def phase_kernel_time_fused(sess, tiered, batches) -> dict:
         bytes_moved=moved, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
-        fraction_of_bound=max(bytes_ms, ops_ms) / ms,
+        fraction_of_bound=max(bytes_ms, ops_ms) / ms, **info,
         launches_per_forward=1, breakdown_ms=breakdown)
+
+
+def _bag_bound_ms(distinct_rows: int, lookups: int, outputs: int,
+                  dim: int) -> float:
+    """Bytes bound of an f32 bag launch: each distinct row once, the int32
+    indices, the output."""
+    moved = distinct_rows * dim * 4 + lookups * 4 + outputs * dim * 4
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def phase_kernel_diag(tables, idx_served, pattern, opts,
+                      geometry_sweep: bool) -> dict:
+    """Where the bag kernel's time goes, at the serve shape [B, T, L] ->
+    [B, T, D] f32 (CUDA events), on three index sets made from the seed:
+    (a) the served med_hot batch 0; (b) distinct: each table's B·L lookups
+    all different rows, a seeded permutation prefix of R, so every row
+    comes from device memory; (c) resident: every lookup from 2,048 rows
+    per table (1 MB a table), which L2 holds; (d) one row per table, which
+    L1 holds: the loop's own cost. Beside each time, the
+    registers per thread and the resident blocks per SM of the
+    instantiation launched. Then the completion shape (T=1, B=2048 bags of
+    L=150 rows read once, as `fused.pool_bag_rows` launches it), and the
+    fused kernel at the serve shape on a slot map made from batch 0 (ranks
+    below K+C hit, the rest MISS; hot and cache are views of the tables),
+    with its pool and list passes timed apart. With `geometry_sweep`, both
+    kernels again at each of seven launch geometries."""
+    B, T, L = idx_served.shape
+    R, D = tables.shape[1], tables.shape[2]
+    dev = tables.device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    resident_rows = 2048
+    idx_distinct = torch.empty_like(idx_served)
+    idx_resident = torch.empty_like(idx_served)
+    idx_one = torch.empty_like(idx_served)
+    resident_distinct = 0
+    for t in range(T):
+        perm = torch.randperm(R, generator=gen, device=dev)[:B * L].int()
+        idx_distinct[:, t] = perm.view(B, L)
+        pick = torch.randint(0, resident_rows, (B, L), generator=gen,
+                             device=dev)
+        idx_resident[:, t] = perm[pick]
+        idx_one[:, t] = perm[0]
+        resident_distinct += int(torch.unique(idx_resident[:, t]).numel())
+    served_distinct = sum(int(torch.unique(idx_served[:, t]).numel())
+                          for t in range(T))
+    all_lookups_ms = B * T * L * D * 4 / HBM_BYTES_PER_S * 1e3
+    sets = {}
+    for name, idx, distinct in (
+            ("a_served", idx_served, served_distinct),
+            ("b_distinct", idx_distinct, B * T * L),
+            ("c_resident", idx_resident, resident_distinct),
+            ("d_one_row", idx_one, T)):
+        ms = cuda_ms(lambda: kernel.embedding_bag_cuda(tables, idx, None,
+                                                       opts),
+                     iters=5, warmup=1)
+        bound = _bag_bound_ms(distinct, B * T * L, B * T, D)
+        sets[name] = dict(ms=ms, distinct_rows=distinct, bound_ms=bound,
+                          fraction_of_bound=bound / ms,
+                          lookup_bytes_per_s=B * T * L * D * 4 / ms * 1e3,
+                          **kernel.last_launch_info())
+    del idx_distinct, idx_resident, idx_one
+
+    # the completion shape: [1, B·L, D] rows read once, indices arange
+    n = 2048
+    rows = torch.randn((1, n * L, D), generator=gen, device=dev)
+    ar = torch.arange(n * L, dtype=torch.int32, device=dev).view(n, 1, L)
+    copts = fused.COMPLETION_OPTS
+    ms = cuda_ms(lambda: kernel.embedding_bag_cuda(rows, ar, None, copts),
+                 iters=20, warmup=2)
+    bound = _bag_bound_ms(n * L, n * L, n, D)
+    completion = dict(shape=[n, 1, L, D], ms=ms, bound_ms=bound,
+                      fraction_of_bound=bound / ms,
+                      **kernel.last_launch_info())
+
+    # the fused kernel at the serve shape on a slot map from batch 0
+    K = C = R // TIER_FRACTION
+    rank = np.empty(R, np.int64)
+    rank[pattern.rank_to_row()] = np.arange(R)
+    rank_dev = torch.from_numpy(rank).to(dev)
+    slots = rank_dev[idx_served.long()]
+    slots = torch.where(slots < K + C, slots,
+                        torch.full_like(slots, fused.MISS)).int()
+    del rank_dev
+    hot, cache = tables[:, :K], tables[:, K:K + C]
+
+    fopts = fused.FusedLookupOpts()
+    ms = cuda_ms(lambda: fused.launch_tables(cache, slots, idx_served, None,
+                                             hot, R, fopts),
+                 iters=5, warmup=1)
+    pool_ms, lists_ms = fused_pass_ms(cache, slots, idx_served, hot, R,
+                                      fopts, iters=5)
+    hit_rows = 0
+    for t in range(T):
+        s = slots[:, t]
+        hit_rows += int(torch.unique(s[s >= 0]).numel())
+    fused_diag = dict(ms=ms, pool_pass_ms=pool_ms, list_pass_ms=lists_ms,
+                      hit_frac=float((slots >= 0).float().mean()),
+                      distinct_hit_rows=hit_rows, **fused.last_launch_info())
+
+    # with geometry_sweep, both kernels at each launch geometry: the bag
+    # kernel on (a), the fused kernel's pool pass on its slot map, the
+    # completion shape
+    geometries = (((8, 2), (8, 4), (8, 8), (8, 16), (4, 4), (4, 8), (2, 8))
+                  if geometry_sweep else ())
+    sweep = []
+    for bb, pd in geometries:
+        geo = dict(batch_block=bb, prefetch_distance=pd)
+        o = dataclasses.replace(opts, **geo)
+        bag_ms = cuda_ms(lambda: kernel.embedding_bag_cuda(
+            tables, idx_served, None, o), iters=3, warmup=1)
+        info = kernel.last_launch_info()
+        co = dataclasses.replace(copts, **geo)
+        comp_ms = cuda_ms(lambda: kernel.embedding_bag_cuda(
+            rows, ar, None, co), iters=20, warmup=2)
+        fused_pool_ms = cuda_ms(lambda: fused.pool_tables(
+            cache, slots, idx_served, None, hot, R,
+            fused.FusedLookupOpts(**geo)), iters=3)
+        sweep.append(dict(geo, ring_depth=info["ring_depth"],
+                          registers=info["registers"],
+                          blocks_per_sm=info["blocks_per_sm"],
+                          bag_served_ms=bag_ms, completion_ms=comp_ms,
+                          fused_pool_pass_ms=fused_pool_ms,
+                          fused_registers=fused.last_launch_info()[
+                              "registers"]))
+    del slots, hot, cache, rows, ar
+    return dict(shape=[B, T, L, D], resident_rows_per_table=resident_rows,
+                all_lookups_ms_at_peak=all_lookups_ms, sets=sets,
+                sweep=sweep, completion=completion,
+                fused_synthetic=fused_diag)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--stop-after", default=None,
                         help="end the run after this phase")
+    parser.add_argument("--geometry-sweep", action="store_true",
+                        help="kernel_diag also times both kernels at each "
+                             "of seven launch geometries")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -890,6 +1112,7 @@ def main() -> int:
     run_kernel = lambda: kernel.embedding_bag_cuda(tables, idx, None, opts)
     ms = cuda_ms(run_kernel, iters=10, warmup=2)
     out_k = run_kernel()
+    bag_info = kernel.last_launch_info()
     plain = lambda: torch.stack([ref.embedding_bag_ref(tables[t], idx[:, t])
                                  for t in range(T)], 1)
     plain_ms = cuda_ms(plain, iters=3)
@@ -921,14 +1144,22 @@ def main() -> int:
          bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
          all_lookups_bytes=all_lookups,
          all_lookups_ms_at_peak=all_lookups / HBM_BYTES_PER_S * 1e3,
-         fraction_of_bound=max(bytes_ms, ops_ms) / ms,
+         fraction_of_bound=max(bytes_ms, ops_ms) / ms, **bag_info,
          breakdown_ms={"indices_to_device": h2d_ms, "embedding_kernel": ms,
                        "mlps_and_interaction": rest_ms,
                        "served_batch_p50": float(np.percentile(lat, 50))},
          seconds=time.perf_counter() - t0)
 
-    del tables, idx, out_k, run_kernel, plain, library, dense
+    del out_k, run_kernel, plain, library, dense
     if stop("kernel_time"):
+        return 0
+
+    # 6b. kernel_diag: the bag kernel on served, distinct and resident rows
+    t0 = time.perf_counter()
+    diag = phase_kernel_diag(tables, idx, pattern, opts, args.geometry_sweep)
+    emit("kernel_diag", **diag, seconds=time.perf_counter() - t0)
+    del tables, idx
+    if stop("kernel_diag"):
         return 0
 
     # 7. serve_tiered: the same weights and batches on the tiered backend
@@ -945,26 +1176,33 @@ def main() -> int:
     emit("kernel_time_fused", **timed, seconds=time.perf_counter() - t0)
 
     # 9. kernels
-    print(json.dumps({"kernels": [{
-        "name": "embedding_bag", "route": "cuda",
-        "source": "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu",
-        "replaces": "src/repro/kernels/embedding_bag/kernel.py:194",
-        "launches": launches,
-        "max_abs_err": max(parity["max_abs_err_f32"],
-                           pooled_cmp["max_abs_err"]),
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms}, {
-        "name": "fused_warm_lookup", "route": "cuda",
-        "source": "src/repro_torch/kernels/embedding_bag/csrc/fused_lookup.cu",
-        "replaces": "src/repro/kernels/embedding_bag/fused.py:266",
-        "launches": fields["fused_launches"],
-        "max_abs_err": max(parity_fused["max_abs_err_f32"],
-                           timed["plain_max_abs_err"]),
-        "ms": timed["ms"], "plain_ms": timed["plain_ms"],
-        "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-        "library_ms": timed["library_ms"]}]}), flush=True)
+    def row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
+            bound_ms, bound_by, library_ms, info, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms,
+                "registers": info["registers"],
+                "blocks_per_sm": info["blocks_per_sm"],
+                "fraction_of_bound": bound_ms / ms, **extra}
+    csrc = "src/repro_torch/kernels/embedding_bag/csrc/"
+    print(json.dumps({"kernels": [
+        row("embedding_bag", csrc + "embedding_bag.cu",
+            "src/repro/kernels/embedding_bag/kernel.py:194", launches,
+            max(parity["max_abs_err_f32"], pooled_cmp["max_abs_err"]), ms,
+            plain_ms, max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", library_ms,
+            bag_info,
+            launches_tiered=fields["bag_kernel_launches"]),
+        row("fused_warm_lookup", csrc + "fused_lookup.cu",
+            "src/repro/kernels/embedding_bag/fused.py:266",
+            fields["fused_launches"],
+            max(parity_fused["max_abs_err_f32"], timed["plain_max_abs_err"]),
+            timed["ms"], timed["plain_ms"], timed["bound_ms"],
+            timed["bound_by"], timed["library_ms"], timed,
+            pool_pass_ms=timed["pool_pass_ms"],
+            list_pass_ms=timed["list_pass_ms"])]}), flush=True)
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -67,7 +67,9 @@ class EmbeddingStageConfig:
     combine: str = "sum"           # bag pooling mode
     # Storage backend name, resolved in the repro_torch.storage registry
     storage: str = "device"
-    prefetch_distance: int = 8
+    # ring depth of the lookup kernels (row slots per warp in shared
+    # memory) and bags per thread block: the fastest on an H100 (PERF.md)
+    prefetch_distance: int = 4
     batch_block: int = 8
     pinned_rows: int = 0           # K per table; paper: 60K rows across L2
     # extra tables stacked after the real ones so the stack divides a

@@ -4,34 +4,41 @@
 // (its pl.pallas_call at kernel.py:194), which the JAX package vmaps over
 // the tables (repro/storage/device.py:144-150).
 //
-// What bounds it on an H100: bytes from device memory. A lookup reads one
-// D-wide row and does D adds (multiply-adds when weighted): about 0.25 FLOP
-// per byte of f32 row, far below the card's ridge point. So the design is
-// about getting the row bytes in quickly:
-//  * one warp per bag; the lanes split the row into 16-byte vectors, so a
-//    D=128 f32 row is one coalesced 512-byte load of the warp;
-//  * a register ring keeps PD row loads of the bag in flight (software
-//    prefetch, paper §IV-B): the load for lookup q+PD is issued as soon as
-//    lookup q is consumed, across the 32-lookup index chunks;
-//  * the warp reads its bag's indices and weights 32 at a time, one per
-//    lane, and broadcasts each with __shfl_sync;
+// What bounds it on an H100. A lookup reads one D-wide row and does D adds
+// (multiply-adds when weighted): about 0.25 FLOP per byte of f32 row, so
+// the floor is the distinct rows' bytes from device memory. But on med_hot
+// traffic the caches serve most repeats of a row, and the earlier design,
+// a register ring of row loads at 80 registers a thread (3 blocks, 24 warps
+// an SM), took 11.4 ms at the serve shape where rows that L2 holds still
+// took 9.4 ms: the loop, not device memory, was the limit (PERF.md). So
+// the design cuts what the loop costs and raises the warps that hide it:
+//  * one warp per bag, the lanes splitting a row into 16-byte slices (a
+//    D=128 f32 row is one 512-byte pass of the warp);
+//  * rows staged in a shared-memory ring of `depth` slots per warp by
+//    cp.async, depth-1 lookups ahead, so the ring costs no registers: 40
+//    registers, 6 blocks of 8 warps an SM;
+//  * indices read 32 at a time, one a lane, turned into row addresses once
+//    and kept with two bitmasks per window; read and written as streaming
+//    data;
+//  * a leaner loop: unrolled chunks with constant slot offsets, no weight,
+//    product or weight sum for unweighted bags, a branch-free compensated
+//    add (bag_common.cuh);
 //  * grid = (ceil(B / bags_per_block), T): one launch writes pooled [B, T, D].
+// What is left: the compensated add is most of the loop, and on served
+// traffic some repeats now reach device memory (PERF.md).
 // Rows below num_hot are read through the separate `hot` operand (the
 // hot-first prefix of each table). Pinning it in L2 with a persisting
 // access-policy window (paper §IV-C) is later work.
 //
 // Sums accumulate in f32 in lookup order, like the Pallas fori_loop, with
-// Neumaier compensation: med_hot bags repeat hot rows many times, and the
-// rounding errors of a plain 150-term chain then add up coherently (at the
-// serve shape they broke the 2·eps·Σ|w·x| rule against the plain version).
-// The compensation costs a few flops per element, free in a kernel this
-// far below the ridge point. Results are written in the table's type. A weighted mean divides by max(sum(w), 1e-9),
-// an unweighted one by L. An index outside [0, R) is never dereferenced: it
-// contributes NaN, as jnp.take's default fill does. Every table offset is
-// 64-bit: T*R*D reaches 1.6e10 elements at the production size.
-//
-// The slice type, the compensated add and the NaN fill live in
-// bag_common.cuh, shared with fused_lookup.cu.
+// a compensated (TwoSum) add: med_hot bags repeat hot rows many times, and
+// the rounding errors of a plain 150-term chain then add up coherently (at
+// the serve shape they broke the 2·eps·Σ|w·x| rule against the plain
+// version). Results are written in the table's type. A weighted mean
+// divides by max(sum(w), 1e-9), an unweighted one by L. An index outside
+// [0, R) is never dereferenced: it contributes NaN, as jnp.take's default
+// fill does. Every table offset is 64-bit: T*R*D reaches 1.6e10 elements at
+// the production size.
 //
 // Plain-C interface, built with nvcc into a shared library and called from
 // Python through ctypes (kernel.py). The launch goes on the caller's stream,
@@ -41,12 +48,10 @@
 
 namespace {
 
-using bag_common::add_compensated;
-using bag_common::kFull;
-using bag_common::Slice;
+using bag_common::Entry;
+using bag_common::kBad;
+using bag_common::kMaxBagsPerBlock;
 
-constexpr int kMaxDistance = 16;
-constexpr int kMaxBagsPerBlock = 8;  // 256 threads: room for a 16-deep ring
 
 struct Params {
   const void* tables;           // [T', R, D], rows contiguous
@@ -68,106 +73,57 @@ struct Params {
   int bags_per_block;
 };
 
-template <typename T, bool VEC, int PD>
-__global__ void __launch_bounds__(32 * kMaxBagsPerBlock) bag_kernel(const Params p) {
-  using S = Slice<T, VEC>;
-  constexpr int N = S::N;
+// Lookup q of one bag -> the address of its row, or kBad.
+template <typename T, bool WEIGHTED> struct BagSource {
+  const int* idx;
+  const float* w;
+  const T* tab;
+  const T* hot;
+  long long row_stride, hot_row_stride, num_hot, num_rows;
+  __device__ __forceinline__ Entry entry(int q, bool) const {
+    const int row = __ldcs(idx + q);
+    const float wv = WEIGHTED ? __ldcs(w + q) : 1.f;
+    if (row < 0 || (long long)row >= num_rows) return {kBad, wv};
+    const T* src = row < num_hot ? hot + row * hot_row_stride
+                                 : tab + row * row_stride;
+    return {reinterpret_cast<uintptr_t>(src), wv};
+  }
+};
+
+template <typename T, bool VEC, bool WEIGHTED, int DEPTH>
+__global__ void __launch_bounds__(32 * kMaxBagsPerBlock,
+                                         bag_common::kMinBlocksPerSM)
+    bag_kernel(const Params p) {
+  extern __shared__ __align__(16) char smem[];
+  using S = bag_common::Slice<T, VEC>;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const long long b = (long long)blockIdx.x * p.bags_per_block + warp;
   if (b >= p.batch) return;  // the ragged edge of B; uniform across the warp
   const int t = blockIdx.y;
   const int L = p.pooling;
   const long long bag = b * p.num_tables + t;
-  const int* idx = p.indices + bag * L;
-  const float* w = p.weights ? p.weights + bag * L : nullptr;
-  const T* tab = static_cast<const T*>(p.tables) + t * p.table_stride;
-  const T* hot = static_cast<const T*>(p.hot) + t * p.hot_table_stride;
+  const BagSource<T, WEIGHTED> src{
+      p.indices + bag * L,
+      WEIGHTED ? p.weights + bag * L : nullptr,
+      static_cast<const T*>(p.tables) + t * p.table_stride,
+      static_cast<const T*>(p.hot) + t * p.hot_table_stride,
+      p.row_stride, p.hot_row_stride, p.num_hot, p.num_rows};
   T* out = static_cast<T*>(p.out) + bag * p.dim;
-  const int slices = p.dim / N;
-
-  for (int c0 = 0; c0 < slices; c0 += 32) {
-    const bool active = c0 + lane < slices;
-    const int col = (c0 + lane) * N;  // this lane's first element in a row
-
-    // Lookups [base, base+32) and [base+32, base+64): one index per lane.
-    int base = 0;
-    int cur_i = lane < L ? idx[lane] : 0;
-    int nxt_i = 32 + lane < L ? idx[32 + lane] : 0;
-    float cur_w = (w && lane < L) ? w[lane] : 1.f;
-    float nxt_w = (w && 32 + lane < L) ? w[32 + lane] : 1.f;
-
-    auto row_at = [&](int q) {  // q - base < 64; q is uniform across the warp
-      const int o = q - base;
-      return __shfl_sync(kFull, o < 32 ? cur_i : nxt_i, o & 31);
-    };
-    auto in_range = [&](int row) {
-      return row >= 0 && (long long)row < p.num_rows;
-    };
-    auto fetch = [&](S& s, int row) {
-      if (!active) return;
-      if (!in_range(row)) row = 0;  // never read out of bounds
-      s.load(row < p.num_hot ? hot + row * p.hot_row_stride + col
-                             : tab + row * p.row_stride + col);
-    };
-
-    float acc[N], comp[N];
+  const bool mean = p.mean;
+  char* mine =
+      smem + warp * bag_common::warp_smem_bytes(DEPTH, WEIGHTED, VEC);
+  bag_common::pool_bag<T, VEC, WEIGHTED, DEPTH>(
+      src, L, p.dim, mine, [=](int col, float* acc, float wsum) {
+        if (mean) {
+          const float denom = WEIGHTED ? fmaxf(wsum, 1e-9f) : (float)L;
 #pragma unroll
-    for (int i = 0; i < N; ++i) acc[i] = comp[i] = 0.f;
-    float wsum = 0.f, wcomp = 0.f;
-
-    S ring[PD];
-#pragma unroll
-    for (int k = 0; k < PD; ++k)
-      if (k < L) fetch(ring[k], row_at(k));
-
-    for (int q0 = 0; q0 < L; q0 += PD) {
-#pragma unroll
-      for (int k = 0; k < PD; ++k) {
-        const int q = q0 + k;  // ring[k] holds lookup q
-        if (q >= L) break;
-        if (q - base == 32) {  // slide the index window by one chunk
-          base += 32;
-          cur_i = nxt_i;
-          cur_w = nxt_w;
-          const int nq = base + 32 + lane;
-          nxt_i = nq < L ? idx[nq] : 0;
-          nxt_w = (w && nq < L) ? w[nq] : 1.f;
+          for (int i = 0; i < S::N; ++i) acc[i] = acc[i] / denom;
         }
-        const int o = q - base;
-        const int row = __shfl_sync(kFull, cur_i, o);
-        float wv = __shfl_sync(kFull, cur_w, o);  // 1 when unweighted
-        if (!in_range(row)) wv = bag_common::quiet_nan();
-        add_compensated(wsum, wcomp, wv);
-#pragma unroll
-        for (int i = 0; i < N; ++i)
-          add_compensated(acc[i], comp[i], __fmul_rn(ring[k].get(i), wv));
-        if (q + PD < L) fetch(ring[k], row_at(q + PD));
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < N; ++i) acc[i] += comp[i];
-    if (p.mean) {
-      const float denom = w ? fmaxf(wsum + wcomp, 1e-9f) : (float)L;
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc[i] = acc[i] / denom;
-    }
-    if (active) S::store(out + col, acc);
-  }
+        S::store(out + col, acc);
+      });
 }
 
-template <typename T, bool VEC>
-void launch(const Params& p, int distance, dim3 grid, dim3 block,
-            cudaStream_t stream) {
-  switch (distance) {
-    case 1: bag_kernel<T, VEC, 1><<<grid, block, 0, stream>>>(p); break;
-    case 2: bag_kernel<T, VEC, 2><<<grid, block, 0, stream>>>(p); break;
-    case 4: bag_kernel<T, VEC, 4><<<grid, block, 0, stream>>>(p); break;
-    case 8: bag_kernel<T, VEC, 8><<<grid, block, 0, stream>>>(p); break;
-    default: bag_kernel<T, VEC, 16><<<grid, block, 0, stream>>>(p); break;
-  }
-}
+bag_common::LaunchRecord g_last;
 
 }  // namespace
 
@@ -175,7 +131,9 @@ using bag_common::aligned16;
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. prefetch_distance asks for the ring
+// depth (row slots per warp; the kernel takes the largest power of two <= it
+// in [2, 16]). Returns a cudaError_t (0 = launched).
 int embedding_bag_launch(const void* tables, long long table_stride,
                          long long row_stride, const void* hot,
                          long long hot_table_stride, long long hot_row_stride,
@@ -185,10 +143,12 @@ int embedding_bag_launch(const void* tables, long long table_stride,
                          int dtype, int mean, int bags_per_block,
                          int prefetch_distance, void* stream) {
   if (batch <= 0 || num_tables <= 0 || dim <= 0) return cudaSuccess;
-  const long long blocks = (batch + bags_per_block - 1) / bags_per_block;
-  if (bags_per_block < 1 || bags_per_block > kMaxBagsPerBlock || num_tables > 65535 ||
-      pooling < 0 || blocks > 0x7fffffffLL || (dtype != 0 && dtype != 1))
+  if (bags_per_block < 1 || bags_per_block > kMaxBagsPerBlock ||
+      prefetch_distance < 1 || num_tables > 65535 || pooling < 0 ||
+      (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
+  const long long blocks = (batch + bags_per_block - 1) / bags_per_block;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   Params p{tables,  table_stride, row_stride, hot,    hot_table_stride,
            hot_row_stride, num_hot, num_rows, indices, weights,
            out,     batch,        num_tables, pooling, dim,
@@ -199,18 +159,27 @@ int embedding_bag_launch(const void* tables, long long table_stride,
                    (hot_row_stride * item) % 16 == 0 &&
                    (hot_table_stride * item) % 16 == 0 && aligned16(tables) &&
                    aligned16(hot) && aligned16(out);
-  const int distance = bag_common::ring_depth(prefetch_distance, kMaxDistance);
   const dim3 grid((unsigned)blocks, (unsigned)num_tables);
   const dim3 block(32 * bags_per_block);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (vec) launch<float, true>(p, distance, grid, block, s);
-    else launch<float, false>(p, distance, grid, block, s);
-  } else {
-    if (vec) launch<__nv_bfloat16, true>(p, distance, grid, block, s);
-    else launch<__nv_bfloat16, false>(p, distance, grid, block, s);
-  }
-  return cudaGetLastError();
+  return bag_common::instantiate(
+      dtype, vec, weights != nullptr, bag_common::ring_depth(prefetch_distance),
+      [&](auto t, auto v, auto w, auto d) {
+        using T = typename decltype(t)::type;
+        constexpr bool VEC = decltype(v)::value, WEIGHTED = decltype(w)::value;
+        constexpr int DEPTH = decltype(d)::value;
+        const size_t smem = (size_t)bags_per_block *
+                            bag_common::warp_smem_bytes(DEPTH, WEIGHTED, VEC);
+        return bag_common::launch_with_smem(
+            bag_kernel<T, VEC, WEIGHTED, DEPTH>, grid, block, smem,
+            static_cast<cudaStream_t>(stream), g_last, VEC ? DEPTH : 0,
+            bags_per_block, p);
+      });
+}
+
+// Registers, resident blocks per SM and the rest of
+// bag_common::launch_info for the last instantiation launched.
+int embedding_bag_last_launch_info(int* out) {
+  return bag_common::launch_info(g_last, out);
 }
 
 const char* embedding_bag_error_string(int err) {

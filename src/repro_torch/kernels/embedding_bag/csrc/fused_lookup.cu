@@ -13,16 +13,21 @@
 //  * the miss list: the distinct missing row ids, ascending, and the flat
 //    positions b*L+i of every MISS, ascending, and their two counts.
 //
-// What bounds it on an H100: bytes from device memory. Each hit reads one
-// D-wide row and does D multiply-adds; the slot map is read once, and the
-// row ids only at MISS positions. So the gather-and-pool pass has the shape
-// of embedding_bag.cu: one warp per bag, 16-byte lane loads (a D=128 f32
-// row is one coalesced 512-byte warp load), and a register ring keeping PD
-// row loads of the bag in flight, over grid (ceil(B / bags_per_block), T).
-// The arithmetic is that kernel's, from bag_common.cuh: products rounded
-// once, Neumaier-compensated f32 sums in lookup order. A bag with no miss
-// therefore comes out bit for bit as the embedding-bag kernel pools it,
-// which is what lets the tiered backend equal the device backend.
+// What bounds it on an H100. Each hit reads one D-wide row and does D adds;
+// the floor is those rows' bytes, once each, plus the slot map. As in
+// embedding_bag.cu, the caches serve most repeats of hot rows, and the
+// earlier register-ring design (72 registers, 24 warps an SM) was held
+// back by the loop's cost, at a fifth of its byte bound. So the
+// gather-and-pool pass runs the core shared with embedding_bag.cu
+// (bag_common.cuh): one warp per bag over grid (ceil(B / bags_per_block),
+// T), rows staged in a shared-memory ring by cp.async, slots turned into
+// row addresses and bitmasks 32 at a time, unrolled chunks, a branch-free
+// compensated add, no weight work for unweighted bags. The slot map is read
+// once, streaming: the staging of each window of 32 slots also does the
+// bag's share of the miss list. What still bounds it is the loop: the
+// bit-exact compensated add per hit (PERF.md). A bag with no miss comes
+// out bit for bit as the embedding-bag kernel pools it, which is what lets
+// the tiered backend equal the device backend.
 //
 // The miss list without a sequential grid. The TPU kernel keeps running
 // miss counters in SMEM from one sequential grid step to the next and
@@ -44,23 +49,21 @@
 // index) and is left out of the miss list.
 //
 // Plain-C interface, built with nvcc into a shared library and called from
-// Python through ctypes (fused.py). The launches go on the caller's stream,
-// do not synchronise and allocate nothing.
+// Python through ctypes (fused.py): one entry per kernel. The launches go on
+// the caller's stream, do not synchronise and allocate nothing.
 
 #include "bag_common.cuh"
 
 namespace {
 
-using bag_common::add_compensated;
+using bag_common::Entry;
+using bag_common::kBad;
 using bag_common::kFull;
-using bag_common::Slice;
+using bag_common::kMaxBagsPerBlock;
+using bag_common::kSkip;
 
-constexpr int kMaxDistance = 16;
-constexpr int kMaxBagsPerBlock = 8;
 constexpr int kListThreads = 1024;  // one block per table in the list pass
 constexpr int kMiss = -1;
-constexpr int kSkip = -1;  // effective slot: nothing to load or add
-constexpr int kBad = -3;   // effective slot: the bag becomes NaN
 
 struct Params {
   const void* cache;            // [T', C, D] warm payload, rows contiguous
@@ -90,20 +93,44 @@ __device__ __forceinline__ bool valid_row(int row, long long num_rows) {
   return row >= 0 && (long long)row < num_rows;
 }
 
-// Slot -> what the pooling loop does with the position: a row to load
-// ([0, K+C)), kSkip for a MISS or PAD, kBad for input it must not trust.
-__device__ __forceinline__ int effective_slot(const Params& p, int slot,
-                                              int row) {
-  if (slot >= 0) return (long long)slot < p.num_hot + p.num_cache ? slot : kBad;
-  if (slot == kMiss) return valid_row(row, p.num_rows) ? kSkip : kBad;
-  return kSkip;  // PAD
-}
+// Slot q of one bag -> the address of its row ([0, K+C)), kSkip for a MISS
+// or PAD, kBad for input it must not trust. On the first column pass a
+// MISS also sets its row's bit and counts towards the bag's misses.
+template <typename T, bool WEIGHTED> struct FusedSource {
+  const int* slot;
+  const int* rowid;
+  const float* w;
+  const T* cache;
+  const T* hot;
+  unsigned* bits;
+  long long cache_row_stride, hot_row_stride, num_hot, num_cache, num_rows;
+  int misses;  // this lane's MISS positions, first pass only
+  __device__ __forceinline__ Entry entry(int q, bool first_pass) {
+    const int s = __ldcs(slot + q);
+    const float wv = WEIGHTED ? __ldcs(w + q) : 1.f;
+    if (s >= 0) {
+      if ((long long)s >= num_hot + num_cache) return {kBad, wv};
+      const T* src = s < num_hot ? hot + s * hot_row_stride
+                                 : cache + (s - num_hot) * cache_row_stride;
+      return {reinterpret_cast<uintptr_t>(src), wv};
+    }
+    if (s != kMiss) return {kSkip, wv};  // PAD
+    const int row = __ldcs(rowid + q);
+    if (!valid_row(row, num_rows)) return {kBad, wv};
+    if (first_pass) {
+      atomicOr(bits + (row >> 5), 1u << (row & 31));
+      ++misses;
+    }
+    return {kSkip, wv};
+  }
+};
 
-template <typename T, bool VEC, int PD>
-__global__ void __launch_bounds__(32 * kMaxBagsPerBlock)
+template <typename T, bool VEC, bool WEIGHTED, int DEPTH>
+__global__ void __launch_bounds__(32 * kMaxBagsPerBlock,
+                                         bag_common::kMinBlocksPerSM)
     fused_kernel(const Params p) {
-  using S = Slice<T, VEC>;
-  constexpr int N = S::N;
+  extern __shared__ __align__(16) char smem[];
+  using S = bag_common::Slice<T, VEC>;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long b = (long long)blockIdx.x * p.bags_per_block + warp;
@@ -111,99 +138,23 @@ __global__ void __launch_bounds__(32 * kMaxBagsPerBlock)
   const int t = blockIdx.y;
   const int L = p.pooling;
   const long long bag = b * p.num_tables + t;
-  const int* slot = p.slots + bag * L;
-  const int* rowid = p.rows + bag * L;
-  const float* w = p.weights ? p.weights + bag * L : nullptr;
-  const T* cache = static_cast<const T*>(p.cache) + t * p.cache_table_stride;
-  const T* hot = p.hot ? static_cast<const T*>(p.hot) + t * p.hot_table_stride
-                       : nullptr;
+  FusedSource<T, WEIGHTED> src{
+      p.slots + bag * L,
+      p.rows + bag * L,
+      WEIGHTED ? p.weights + bag * L : nullptr,
+      static_cast<const T*>(p.cache) + t * p.cache_table_stride,
+      p.hot ? static_cast<const T*>(p.hot) + t * p.hot_table_stride : nullptr,
+      p.bitmap + t * p.words,
+      p.cache_row_stride, p.hot_row_stride, p.num_hot, p.num_cache,
+      p.num_rows, 0};
   T* out = static_cast<T*>(p.out) + bag * p.dim;
-  unsigned* bits = p.bitmap + t * p.words;
-
-  // The miss list's share of this bag: its MISS count, and one bit per
-  // missing row. Reads the row ids at MISS positions only.
-  int misses = 0;
-  for (int i0 = 0; i0 < L; i0 += 32) {
-    const int i = i0 + lane;
-    bool miss = false;
-    if (i < L && slot[i] == kMiss) {
-      const int row = rowid[i];
-      miss = valid_row(row, p.num_rows);
-      if (miss) atomicOr(bits + (row >> 5), 1u << (row & 31));
-    }
-    misses += __popc(__ballot_sync(kFull, miss));
-  }
+  char* mine =
+      smem + warp * bag_common::warp_smem_bytes(DEPTH, WEIGHTED, VEC);
+  bag_common::pool_bag<T, VEC, WEIGHTED, DEPTH>(
+      src, L, p.dim, mine,
+      [=](int col, float* acc, float) { S::store(out + col, acc); });
+  const int misses = __reduce_add_sync(kFull, src.misses);
   if (lane == 0) p.bag_miss[(long long)t * p.batch + b] = misses;
-
-  const int slices = p.dim / N;
-  for (int c0 = 0; c0 < slices; c0 += 32) {
-    const bool active = c0 + lane < slices;
-    const int col = (c0 + lane) * N;  // this lane's first element in a row
-
-    // Lookups [base, base+32) and [base+32, base+64): one slot per lane.
-    auto load_slot = [&](int q) {
-      if (q >= L) return kSkip;
-      const int s = slot[q];
-      return effective_slot(p, s, s == kMiss ? rowid[q] : 0);
-    };
-    int base = 0;
-    int cur_e = load_slot(lane);
-    int nxt_e = load_slot(32 + lane);
-    float cur_w = (w && lane < L) ? w[lane] : 1.f;
-    float nxt_w = (w && 32 + lane < L) ? w[32 + lane] : 1.f;
-
-    auto slot_at = [&](int q) {  // q - base < 64; q is uniform across the warp
-      const int o = q - base;
-      return __shfl_sync(kFull, o < 32 ? cur_e : nxt_e, o & 31);
-    };
-    auto fetch = [&](S& s, int e) {
-      if (!active || e < 0) return;  // a MISS, PAD or bad slot loads nothing
-      s.load(e < p.num_hot ? hot + e * p.hot_row_stride + col
-                           : cache + (e - p.num_hot) * p.cache_row_stride + col);
-    };
-
-    float acc[N], comp[N];
-#pragma unroll
-    for (int i = 0; i < N; ++i) acc[i] = comp[i] = 0.f;
-
-    S ring[PD];
-#pragma unroll
-    for (int k = 0; k < PD; ++k)
-      if (k < L) fetch(ring[k], slot_at(k));
-
-    for (int q0 = 0; q0 < L; q0 += PD) {
-#pragma unroll
-      for (int k = 0; k < PD; ++k) {
-        const int q = q0 + k;  // ring[k] holds lookup q
-        if (q >= L) break;
-        if (q - base == 32) {  // slide the slot window by one chunk
-          base += 32;
-          cur_e = nxt_e;
-          cur_w = nxt_w;
-          const int nq = base + 32 + lane;
-          nxt_e = load_slot(nq);
-          nxt_w = (w && nq < L) ? w[nq] : 1.f;
-        }
-        const int o = q - base;
-        const int e = __shfl_sync(kFull, cur_e, o);
-        const float wv = __shfl_sync(kFull, cur_w, o);  // 1 when unweighted
-        if (e >= 0) {
-#pragma unroll
-          for (int i = 0; i < N; ++i)
-            add_compensated(acc[i], comp[i], __fmul_rn(ring[k].get(i), wv));
-        } else if (e == kBad) {
-#pragma unroll
-          for (int i = 0; i < N; ++i)
-            add_compensated(acc[i], comp[i], bag_common::quiet_nan());
-        }
-        if (q + PD < L) fetch(ring[k], slot_at(q + PD));
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < N; ++i) acc[i] += comp[i];
-    if (active) S::store(out + col, acc);
-  }
 }
 
 // Exclusive prefix sum of v over the block; *total gets the block's sum.
@@ -309,17 +260,7 @@ __global__ void __launch_bounds__(kListThreads)
   }
 }
 
-template <typename T, bool VEC>
-void launch(const Params& p, int distance, dim3 grid, dim3 block,
-            cudaStream_t stream) {
-  switch (distance) {
-    case 1: fused_kernel<T, VEC, 1><<<grid, block, 0, stream>>>(p); break;
-    case 2: fused_kernel<T, VEC, 2><<<grid, block, 0, stream>>>(p); break;
-    case 4: fused_kernel<T, VEC, 4><<<grid, block, 0, stream>>>(p); break;
-    case 8: fused_kernel<T, VEC, 8><<<grid, block, 0, stream>>>(p); break;
-    default: fused_kernel<T, VEC, 16><<<grid, block, 0, stream>>>(p); break;
-  }
-}
+bag_common::LaunchRecord g_last;
 
 }  // namespace
 
@@ -327,33 +268,36 @@ using bag_common::aligned16;
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. bag_miss, bitmap, miss_rows, miss_pos
-// and counts are scratch and outputs the caller allocates; the bitmap must
-// be zero. Returns a cudaError_t (0 = both kernels launched).
-int fused_lookup_launch(const void* cache, long long cache_table_stride,
-                        long long cache_row_stride, long long num_cache,
-                        const void* hot, long long hot_table_stride,
-                        long long hot_row_stride, long long num_hot,
-                        long long num_rows, const int* slots, const int* rows,
-                        const float* weights, void* out, int* bag_miss,
-                        unsigned* bitmap, long long words, int* miss_rows,
-                        int* miss_pos, int* counts, long long capacity,
-                        long long batch, int num_tables, int pooling, int dim,
-                        int dtype, int bags_per_block, int prefetch_distance,
-                        void* stream) {
+// The gather-and-pool pass over every table. dtype: 0 = float32,
+// 1 = bfloat16. prefetch_distance asks for the ring depth (row slots per
+// warp; the kernel takes the largest power of two <= it in [2, 16]).
+// bag_miss and bitmap are outputs the caller allocates, the bitmap zeroed.
+// Returns a cudaError_t (0 = launched).
+int fused_lookup_pool(const void* cache, long long cache_table_stride,
+                      long long cache_row_stride, long long num_cache,
+                      const void* hot, long long hot_table_stride,
+                      long long hot_row_stride, long long num_hot,
+                      long long num_rows, const int* slots, const int* rows,
+                      const float* weights, void* out, int* bag_miss,
+                      unsigned* bitmap, long long words, long long batch,
+                      int num_tables, int pooling, int dim, int dtype,
+                      int bags_per_block, int prefetch_distance,
+                      void* stream) {
   if (batch <= 0 || num_tables <= 0 || dim <= 0) return cudaSuccess;
-  const long long blocks = (batch + bags_per_block - 1) / bags_per_block;
   if (bags_per_block < 1 || bags_per_block > kMaxBagsPerBlock ||
-      num_tables > 65535 || pooling < 0 || blocks > 0x7fffffffLL ||
-      capacity < batch * pooling || batch * pooling > 0x7fffffffLL ||
-      num_rows > 0x7fffffffLL || (dtype != 0 && dtype != 1))
+      prefetch_distance < 1 || num_tables > 65535 || pooling < 0 ||
+      batch * pooling > 0x7fffffffLL || num_rows > 0x7fffffffLL ||
+      (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
+  const long long blocks = (batch + bags_per_block - 1) / bags_per_block;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   Params p{cache,    cache_table_stride, cache_row_stride, num_cache,
            hot,      hot_table_stride,   hot_row_stride,   num_hot,
            num_rows, slots,              rows,             weights,
            out,      bag_miss,           bitmap,           words,
            batch,    num_tables,         pooling,          dim,
            bags_per_block};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long item = dtype == 0 ? 4 : 2;
   const bool vec = (dim * item) % 16 == 0 &&
                    (cache_row_stride * item) % 16 == 0 &&
@@ -361,22 +305,55 @@ int fused_lookup_launch(const void* cache, long long cache_table_stride,
                    (hot_row_stride * item) % 16 == 0 &&
                    (hot_table_stride * item) % 16 == 0 && aligned16(cache) &&
                    aligned16(hot) && aligned16(out);
-  const int distance = bag_common::ring_depth(prefetch_distance, kMaxDistance);
   const dim3 grid((unsigned)blocks, (unsigned)num_tables);
   const dim3 block(32 * bags_per_block);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (vec) launch<float, true>(p, distance, grid, block, s);
-    else launch<float, false>(p, distance, grid, block, s);
-  } else {
-    if (vec) launch<__nv_bfloat16, true>(p, distance, grid, block, s);
-    else launch<__nv_bfloat16, false>(p, distance, grid, block, s);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  miss_list_kernel<<<num_tables, kListThreads, 0, s>>>(p, miss_rows, miss_pos,
-                                                       counts, capacity);
+  return bag_common::instantiate(
+      dtype, vec, weights != nullptr, bag_common::ring_depth(prefetch_distance),
+      [&](auto t, auto v, auto w, auto d) {
+        using T = typename decltype(t)::type;
+        constexpr bool VEC = decltype(v)::value, WEIGHTED = decltype(w)::value;
+        constexpr int DEPTH = decltype(d)::value;
+        const size_t smem = (size_t)bags_per_block *
+                            bag_common::warp_smem_bytes(DEPTH, WEIGHTED, VEC);
+        return bag_common::launch_with_smem(
+            fused_kernel<T, VEC, WEIGHTED, DEPTH>, grid, block, smem, s,
+            g_last, VEC ? DEPTH : 0, bags_per_block, p);
+      });
+}
+
+// The miss-list pass over the gather-and-pool pass's bag_miss and bitmap,
+// after it on the same stream: miss_rows, miss_pos ([T, capacity]) and
+// counts ([T, 2]) are outputs the caller allocates. Returns a cudaError_t.
+int fused_lookup_lists(const int* slots, const int* rows, long long num_rows,
+                       int* bag_miss, unsigned* bitmap, long long words,
+                       int* miss_rows, int* miss_pos, int* counts,
+                       long long capacity, long long batch, int num_tables,
+                       int pooling, void* stream) {
+  if (batch <= 0 || num_tables <= 0) return cudaSuccess;
+  if (num_tables > 65535 || pooling < 0 || capacity < batch * pooling ||
+      batch * pooling > 0x7fffffffLL || num_rows > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  Params p{};
+  p.num_rows = num_rows;
+  p.slots = slots;
+  p.rows = rows;
+  p.bag_miss = bag_miss;
+  p.bitmap = bitmap;
+  p.words = words;
+  p.batch = batch;
+  p.num_tables = num_tables;
+  p.pooling = pooling;
+  miss_list_kernel<<<num_tables, kListThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      p, miss_rows, miss_pos, counts, capacity);
   return cudaGetLastError();
+}
+
+// Registers, resident blocks per SM and the rest of
+// bag_common::launch_info for the gather-and-pool instantiation launched
+// last.
+int fused_lookup_last_launch_info(int* out) {
+  return bag_common::launch_info(g_last, out);
 }
 
 const char* fused_lookup_error_string(int err) {

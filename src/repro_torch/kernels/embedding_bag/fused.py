@@ -44,8 +44,12 @@ from .ops import resolve_backend
 MISS = -1          # slot-map sentinel: miss — zero contribution + emission
 PAD = -2           # slot-map sentinel: padded dummy bag — zero, no emission
 
+#: The embedding-bag kernel's options for bag completion (`pool_bag_rows`):
+#: one table of n·L rows, each read once.
+COMPLETION_OPTS = kernel.EmbeddingBagOpts()
+
 #: Launches of the gather-and-pool kernel since the count was last set to 0.
-#: Only `launch_tables` adds to it, once per launch.
+#: Only `pool_tables` adds to it, once per launch.
 LAUNCHES = 0
 
 SOURCES = (kernel.CSRC / "fused_lookup.cu",)
@@ -56,11 +60,9 @@ _lib = None
 
 
 @dataclasses.dataclass(frozen=True)
-class FusedLookupOpts:
-    """Tuning knobs (same mechanism analogues as EmbeddingBagOpts)."""
-
-    prefetch_distance: int = 8   # row loads in flight per warp
-    batch_block: int = 8         # bags (warps) per thread block, <= 8
+class FusedLookupOpts(kernel.LaunchGeometry):
+    """Tuning knobs: the launch shape shared with the embedding-bag kernel
+    (`kernel.LaunchGeometry`: ring depth, bags per block)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,15 +90,27 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
         ll, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        lib.fused_lookup_launch.argtypes = [
+        lib.fused_lookup_pool.argtypes = [
             ptr, ll, ll, ll, ptr, ll, ll, ll, ll, ptr, ptr, ptr, ptr, ptr,
-            ptr, ll, ptr, ptr, ptr, ll, ll, i32, i32, i32, i32, i32, i32,
-            ptr]
-        lib.fused_lookup_launch.restype = i32
+            ptr, ll, ll, i32, i32, i32, i32, i32, i32, ptr]
+        lib.fused_lookup_pool.restype = i32
+        lib.fused_lookup_lists.argtypes = [
+            ptr, ptr, ll, ptr, ptr, ll, ptr, ptr, ptr, ll, ll, i32, i32, ptr]
+        lib.fused_lookup_lists.restype = i32
+        lib.fused_lookup_last_launch_info.argtypes = [ptr]
+        lib.fused_lookup_last_launch_info.restype = i32
         lib.fused_lookup_error_string.argtypes = [i32]
         lib.fused_lookup_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def last_launch_info() -> dict:
+    """Registers per thread, resident blocks per SM, spill bytes and
+    geometry of the gather-and-pool instantiation launched last."""
+    lib = _library()
+    return kernel.launch_info(lib.fused_lookup_last_launch_info,
+                              lib.fused_lookup_error_string)
 
 
 def _check_operands(cache, slots, rows, weights, hot):
@@ -129,44 +143,37 @@ def _check_operands(cache, slots, rows, weights, hot):
                          f"{cache.device}, got {tuple(hot.shape)} {hot.dtype}")
 
 
-def launch_tables(cache: torch.Tensor, slots: torch.Tensor,
-                  rows: torch.Tensor, weights: torch.Tensor | None,
-                  hot: torch.Tensor | None, num_rows: int,
-                  opts: FusedLookupOpts):
-    """One launch of the CUDA kernel pair over every table.
+def pool_tables(cache: torch.Tensor, slots: torch.Tensor,
+                rows: torch.Tensor, weights: torch.Tensor | None,
+                hot: torch.Tensor | None, num_rows: int,
+                opts: FusedLookupOpts):
+    """One launch of the gather-and-pool kernel over every table.
 
-    Returns (pooled [B, T, D] raw sums, miss_rows [T, cap], miss_pos
-    [T, cap], counts [T, 2]) on the device; only the first counts[t, 0] /
-    counts[t, 1] entries of a table's lists are defined."""
+    Returns (pooled [B, T, D] raw sums, bag_miss [T, B] MISS counts per
+    bag, bitmap [T, ceil(R/32)] of the missing rows) on the device; the
+    last two are what `list_tables` turns into the miss lists."""
     global LAUNCHES
+    opts.validate()
     if not cache.is_cuda:
         raise ValueError("the fused lookup kernel needs tensors on a CUDA "
                          "device; CPU tensors go to fused_warm_lookup_plain")
     _check_operands(cache, slots, rows, weights, hot)
-    if not 1 <= opts.batch_block <= kernel.MAX_BATCH_BLOCK:
-        raise ValueError(f"batch_block must be in [1, "
-                         f"{kernel.MAX_BATCH_BLOCK}]")
     if not 0 <= num_rows < 2 ** 31:
         raise ValueError(f"num_rows {num_rows} outside [0, 2^31)")
     batch, num_tables, pooling = slots.shape
     dim = cache.shape[2]
     dev = cache.device
-    cap = max(1, batch * pooling)
     words = max(1, -(-num_rows // 32))
     pooled = torch.empty((batch, num_tables, dim), dtype=cache.dtype,
                          device=dev)
-    bag_miss = torch.empty((num_tables, batch), dtype=torch.int32, device=dev)
+    bag_miss = torch.zeros((num_tables, batch), dtype=torch.int32, device=dev)
     bitmap = torch.zeros((num_tables, words), dtype=torch.int32, device=dev)
-    miss_rows = torch.empty((num_tables, cap), dtype=torch.int32, device=dev)
-    miss_pos = torch.empty((num_tables, cap), dtype=torch.int32, device=dev)
-    counts = torch.zeros((num_tables, 2), dtype=torch.int32, device=dev)
     if pooled.numel() == 0:
-        return pooled, miss_rows, miss_pos, counts
+        return pooled, bag_miss, bitmap
     num_hot = 0 if hot is None else hot.shape[1]
     lib = _library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_lookup_launch(
+        err = lib.fused_lookup_pool(
             cache.data_ptr(), cache.stride(0), cache.stride(1),
             cache.shape[1],
             None if hot is None else hot.data_ptr(),
@@ -174,16 +181,57 @@ def launch_tables(cache: torch.Tensor, slots: torch.Tensor,
             0 if hot is None else hot.stride(1), num_hot, num_rows,
             slots.data_ptr(), rows.data_ptr(),
             None if weights is None else weights.data_ptr(),
-            pooled.data_ptr(), bag_miss.data_ptr(), bitmap.data_ptr(), words,
-            miss_rows.data_ptr(), miss_pos.data_ptr(), counts.data_ptr(),
-            cap, batch, num_tables, pooling, dim,
+            pooled.data_ptr(), bag_miss.data_ptr(), bitmap.data_ptr(),
+            words, batch, num_tables, pooling, dim,
             _DTYPE_CODES[cache.dtype], opts.batch_block,
-            opts.prefetch_distance, stream)
+            opts.prefetch_distance, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError("fused lookup kernel launch failed: "
                            + lib.fused_lookup_error_string(err).decode())
     LAUNCHES += 1
-    return pooled, miss_rows, miss_pos, counts
+    return pooled, bag_miss, bitmap
+
+
+def list_tables(slots: torch.Tensor, rows: torch.Tensor,
+                bag_miss: torch.Tensor, bitmap: torch.Tensor, num_rows: int):
+    """One launch of the miss-list kernel over `pool_tables`' bag counts
+    and bitmap (one block per table, on the same stream).
+
+    Returns (miss_rows [T, cap], miss_pos [T, cap], counts [T, 2]) on the
+    device; only the first counts[t, 0] / counts[t, 1] entries of a
+    table's lists are defined."""
+    batch, num_tables, pooling = slots.shape
+    dev = slots.device
+    cap = max(1, batch * pooling)
+    miss_rows = torch.empty((num_tables, cap), dtype=torch.int32, device=dev)
+    miss_pos = torch.empty((num_tables, cap), dtype=torch.int32, device=dev)
+    counts = torch.zeros((num_tables, 2), dtype=torch.int32, device=dev)
+    if batch * num_tables == 0:
+        return miss_rows, miss_pos, counts
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.fused_lookup_lists(
+            slots.data_ptr(), rows.data_ptr(), num_rows, bag_miss.data_ptr(),
+            bitmap.data_ptr(), bitmap.shape[1], miss_rows.data_ptr(),
+            miss_pos.data_ptr(), counts.data_ptr(), cap, batch, num_tables,
+            pooling, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError("miss-list kernel launch failed: "
+                           + lib.fused_lookup_error_string(err).decode())
+    return miss_rows, miss_pos, counts
+
+
+def launch_tables(cache: torch.Tensor, slots: torch.Tensor,
+                  rows: torch.Tensor, weights: torch.Tensor | None,
+                  hot: torch.Tensor | None, num_rows: int,
+                  opts: FusedLookupOpts):
+    """The kernel pair over every table: `pool_tables`, then `list_tables`.
+
+    Returns (pooled [B, T, D] raw sums, miss_rows [T, cap], miss_pos
+    [T, cap], counts [T, 2]) on the device."""
+    pooled, bag_miss, bitmap = pool_tables(cache, slots, rows, weights, hot,
+                                           num_rows, opts)
+    return (pooled, *list_tables(slots, rows, bag_miss, bitmap, num_rows))
 
 
 def lists_to_host(miss_rows: torch.Tensor, miss_pos: torch.Tensor,
@@ -383,7 +431,7 @@ def pool_bag_rows(bag_rows, weights=None, *, mode: str = "sum",
     return kernel.embedding_bag_cuda(
         rows.reshape(1, n * pooling, dim).contiguous(), idx,
         None if w is None else w.reshape(n, 1, pooling).contiguous(),
-        kernel.EmbeddingBagOpts(mode=mode))[:, 0]
+        dataclasses.replace(COMPLETION_OPTS, mode=mode))[:, 0]
 
 
 def complete_miss_bags(pooled: torch.Tensor, bag_ids, bag_rows,

@@ -9,16 +9,21 @@ loaded with `ctypes`. A missing `nvcc` or a failed build raises: there is
 no fallback to the plain version. `BUILD_DIR` lies in the checkout that
 holds `src/`, so the port runs from a checkout, not from an installed copy.
 
-The paper's mechanisms on Hopper:
+The paper's mechanisms on Hopper (the design is in `csrc/bag_common.cuh`,
+shared with the fused kernel):
 
-* software prefetching (paper §IV-B) -> a register ring per warp that keeps
-  `prefetch_distance` row loads of the bag in flight;
+* software prefetching (paper §IV-B) -> a ring of `prefetch_distance` row
+  slots per warp in shared memory, filled by asynchronous copies
+  (`cp.async`) depth-1 lookups ahead of the pooling loop;
 * L2 pinning (paper §IV-C) -> rows `< num_hot` (tables stored hot-first,
   see core/hot_cache.py) are read through a separate `hot` operand, the
   hot-first prefix of each table; pinning it with a persisting L2 window
   is later work;
 * occupancy (paper §III-C) -> `batch_block` bags (one warp each) per
-  thread block.
+  thread block; with the ring in shared memory, registers no longer cap
+  the resident warps. `last_launch_info` reports the registers per thread
+  and the resident blocks per SM of the instantiation launched, as the
+  CUDA runtime counts them.
 """
 from __future__ import annotations
 
@@ -43,33 +48,64 @@ HEADERS = (CSRC / "bag_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_BATCH_BLOCK = 8        # kMaxBagsPerBlock in the source
-MAX_PREFETCH = 16          # kMaxDistance in the source
+MAX_BATCH_BLOCK = 8        # kMaxBagsPerBlock in bag_common.cuh
+RING_DEPTHS = (2, 16)      # kMinRingDepth, kMaxRingDepth in bag_common.cuh
+ROW_PASS_BYTES = 512       # kRowPass: a row's bytes one warp pass covers
+ENTRY_BYTES = 64 * 8       # kEntries staged row addresses a warp
+WEIGHT_BYTES = 64 * 4      # kEntries staged weights a warp (weighted bags)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
 
 
 @dataclasses.dataclass(frozen=True)
-class EmbeddingBagOpts:
+class LaunchGeometry:
+    """The launch shape both lookup kernels share (bag_common.cuh)."""
+
+    prefetch_distance: int = 4   # ring depth asked for: row slots per warp
+    #                              in shared memory, depth-1 copies in flight
+    batch_block: int = 8         # bags (warps) per thread block, <= 8
+
+    def validate(self) -> None:
+        """Raise ValueError on options beyond the kernels' limits; the
+        wrappers call it before anything is launched."""
+        if not 1 <= self.batch_block <= MAX_BATCH_BLOCK:
+            raise ValueError(f"batch_block must be in [1, {MAX_BATCH_BLOCK}]"
+                             f", got {self.batch_block}")
+        if self.prefetch_distance < 1:
+            raise ValueError(f"prefetch_distance must be >= 1, got "
+                             f"{self.prefetch_distance}")
+
+    def ring_depth(self) -> int:
+        """The depth the kernels take (bag_common::ring_depth): the largest
+        power of two <= prefetch_distance, clamped to RING_DEPTHS."""
+        lo, hi = RING_DEPTHS
+        depth = lo
+        while depth * 2 <= min(self.prefetch_distance, hi):
+            depth *= 2
+        return depth
+
+    def shared_bytes(self, dim: int, itemsize: int = 4,
+                     weighted: bool = False) -> int:
+        """Dynamic shared memory of one thread block: per warp (one warp
+        pools a bag), the row ring (ring_depth x 512 bytes, where a row's
+        bytes are a multiple of 16; the scalar path has no ring), the 64
+        staged row addresses and, for weighted bags, the 64 staged
+        weights. A row wider than 512 bytes is pooled in several passes
+        over the same ring. chip_smoke.py holds this to the bytes the
+        libraries report they launched with (`last_launch_info`)."""
+        vec = dim * itemsize % 16 == 0
+        per_warp = ((self.ring_depth() * ROW_PASS_BYTES if vec else 0)
+                    + ENTRY_BYTES + (WEIGHT_BYTES if weighted else 0))
+        return self.batch_block * per_warp
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingBagOpts(LaunchGeometry):
     """Tuning knobs (paper-mechanism analogues)."""
 
-    prefetch_distance: int = 8   # row loads in flight per warp; the kernel
-    #                              takes the largest power of two <= it, <= 16
-    batch_block: int = 8         # bags (warps) per thread block, <= 8
     num_hot: int = 0             # rows read through the hot operand; 0 = off
     mode: str = "sum"            # 'sum' | 'mean'
-
-    def register_bytes(self, dim: int, itemsize: int = 4) -> int:
-        """Register-file bytes one thread block holds in its prefetch rings
-        and accumulators (the kernel uses no shared memory). A warp covers
-        512 bytes of a row per pass (16 bytes a lane)."""
-        distance = 1
-        while (distance * 2 <= min(self.prefetch_distance, MAX_PREFETCH)):
-            distance *= 2
-        row_pass = min(dim * itemsize, 32 * 16)
-        acc = row_pass // itemsize * 4           # f32 accumulators
-        return self.batch_block * (distance * row_pass + acc)
 
 
 def _nvcc() -> str:
@@ -124,10 +160,37 @@ def _library():
             ptr, ll, ll, ptr, ll, ll, ll, ll, ptr, ptr, ptr, ll,
             i32, i32, i32, i32, i32, i32, i32, ptr]
         lib.embedding_bag_launch.restype = i32
+        lib.embedding_bag_last_launch_info.argtypes = [ptr]
+        lib.embedding_bag_last_launch_info.restype = i32
         lib.embedding_bag_error_string.argtypes = [i32]
         lib.embedding_bag_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+LAUNCH_INFO_KEYS = ("registers", "blocks_per_sm", "local_bytes",
+                    "static_shared_bytes", "ring_depth", "bags_per_block",
+                    "dynamic_shared_bytes")   # bag_common::launch_info
+
+
+def launch_info(query, error_string) -> dict:
+    """Ask a library about the instantiation it launched last
+    (`bag_common::launch_info`: cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
+    err = query(out)
+    if err:
+        raise RuntimeError("launch info query failed: "
+                           + error_string(err).decode())
+    return dict(zip(LAUNCH_INFO_KEYS, out))
+
+
+def last_launch_info() -> dict:
+    """Registers per thread, resident blocks per SM, spill bytes and
+    geometry of the embedding-bag instantiation launched last."""
+    lib = _library()
+    return launch_info(lib.embedding_bag_last_launch_info,
+                       lib.embedding_bag_error_string)
 
 
 def embedding_bag_cuda(tables: torch.Tensor, indices: torch.Tensor,
@@ -145,6 +208,9 @@ def embedding_bag_cuda(tables: torch.Tensor, indices: torch.Tensor,
     returns: [B, T, D] in the tables' dtype
     """
     global LAUNCHES
+    opts.validate()
+    if opts.mode not in ("sum", "mean"):
+        raise ValueError(f"unknown mode {opts.mode!r}")
     if not tables.is_cuda:
         raise ValueError("embedding_bag_cuda needs tables on a CUDA device; "
                          "CPU tensors go to ref.embedding_bag_ref")
@@ -165,10 +231,6 @@ def embedding_bag_cuda(tables: torch.Tensor, indices: torch.Tensor,
             or not weights.is_contiguous() or weights.device != tables.device):
         raise ValueError(f"weights must be contiguous float32 "
                          f"{tuple(indices.shape)} on {tables.device}")
-    if opts.mode not in ("sum", "mean"):
-        raise ValueError(f"unknown mode {opts.mode!r}")
-    if not 1 <= opts.batch_block <= MAX_BATCH_BLOCK:
-        raise ValueError(f"batch_block must be in [1, {MAX_BATCH_BLOCK}]")
     batch, num_tables, pooling = indices.shape
     rows, dim = tables.shape[1], tables.shape[2]
     num_hot = max(0, min(opts.num_hot, rows))

@@ -18,7 +18,7 @@ from repro.core import hot_cache as jhot
 from repro.kernels.embedding_bag import ops as jops
 from repro.kernels.embedding_bag import ref as jref
 from repro_torch.core import hot_cache
-from repro_torch.kernels.embedding_bag import kernel, ops, ref
+from repro_torch.kernels.embedding_bag import fused, kernel, ops, ref
 
 ROWS, DIM, POOL, BATCH = 1000, 16, 8, 13   # B=13: no block size divides it
 
@@ -150,14 +150,53 @@ def test_build_without_nvcc_raises(monkeypatch):
 
 
 def test_opts_register_bytes():
+    """The launch geometry's accounting, which replaced the register-ring
+    byte count: the ring lives in shared memory, one warp per bag."""
     opts = kernel.EmbeddingBagOpts(prefetch_distance=8, batch_block=8)
-    # D=128 f32: one 512-byte row slice per ring slot, 128 f32 accumulators
-    assert opts.register_bytes(dim=128) == 8 * (8 * 512 + 512)
-    # the kernel rounds the distance down to a power of two, at most 16
-    assert kernel.EmbeddingBagOpts(prefetch_distance=40).register_bytes(
-        64) == kernel.EmbeddingBagOpts(prefetch_distance=16).register_bytes(64)
-    assert kernel.EmbeddingBagOpts(prefetch_distance=5).register_bytes(
-        64) == kernel.EmbeddingBagOpts(prefetch_distance=4).register_bytes(64)
+    # D=128 f32, unweighted: per warp an 8-slot ring of 512-byte rows and
+    # 64 staged row addresses
+    assert opts.shared_bytes(dim=128) == 8 * (8 * 512 + 64 * 8)
+    # weighted bags also stage 64 weights a warp
+    assert opts.shared_bytes(dim=128, weighted=True) == 8 * (
+        8 * 512 + 64 * 8 + 64 * 4)
+    # a row wider than 512 bytes reuses the same ring in several passes
+    assert opts.shared_bytes(dim=256) == opts.shared_bytes(dim=128)
+    # the scalar path (row bytes not a multiple of 16) has no ring
+    assert opts.shared_bytes(dim=33) == 8 * 64 * 8
+    # the default ring (depth 4); bf16 rows of 128 bytes take the ring,
+    # bf16 rows of 72 bytes do not
+    small = kernel.EmbeddingBagOpts(batch_block=2)
+    assert small.ring_depth() == 4
+    assert small.shared_bytes(64, 2) == 2 * (4 * 512 + 64 * 8)
+    assert small.shared_bytes(36, 2) == 2 * 64 * 8
+
+
+@pytest.mark.parametrize("requested,depth", [
+    (1, 2), (2, 2), (3, 2), (4, 4), (5, 4), (8, 8), (15, 8), (16, 16),
+    (40, 16)])
+def test_ring_depth_clamp(requested, depth):
+    """The kernels take the largest power of two <= prefetch_distance,
+    clamped to [2, 16]; the accounting follows the depth taken."""
+    opts = kernel.EmbeddingBagOpts(prefetch_distance=requested)
+    assert opts.ring_depth() == depth
+    assert opts.shared_bytes(128) == 8 * (depth * 512 + 64 * 8)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(batch_block=0), dict(batch_block=9), dict(prefetch_distance=0),
+    dict(prefetch_distance=-4)])
+def test_wrappers_refuse_options_beyond_limits(bad):
+    """Both CUDA wrappers check their options before anything is launched
+    (here, before they even look at the device)."""
+    table, idx, _ = _inputs(11, False)
+    with pytest.raises(ValueError, match="batch_block|prefetch_distance"):
+        kernel.embedding_bag_cuda(_t(table)[None], _t(idx)[:, None],
+                                  opts=kernel.EmbeddingBagOpts(**bad))
+    slots = _t(idx)[:, None].contiguous()
+    with pytest.raises(ValueError, match="batch_block|prefetch_distance"):
+        fused.launch_tables(_t(table)[None], slots, slots, None, None, ROWS,
+                            fused.FusedLookupOpts(**bad))
+    assert kernel.LAUNCHES == fused.LAUNCHES == 0
 
 
 def test_hot_plan_remap_on_tensors_matches_numpy():
