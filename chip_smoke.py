@@ -36,11 +36,16 @@ and the script exits non-zero:
                   (served, all distinct, L2-resident, one row per table),
                   the completion shape, and the fused kernel's two passes
                   on a slot map made from the served batch
-  7. serve_tiered the same weights and the same 3 batches on the `tiered`
-                  backend (hot 50K + warm 50K rows per table on the card,
-                  the cold tier on the host, async prefetch); the fused
-                  kernel launches once per forward; logits match phase
-                  serve's
+  6c. replay_device  phase serve's model under a flash crowd on a virtual
+                  clock: service time measured at max_batch=256, an SLO of
+                  3x its p99, the shrink rung down to 32; sheds, levels,
+                  batch sizes, one bag launch per forward, a sample
+                  batch's logits against the plain path
+  7. serve_tiered the same weights and the first 2 of those batches on the
+                  `tiered` backend (hot 50K + warm 50K rows per table on
+                  the card, the cold tier on the host, async prefetch); the
+                  fused kernel launches once per forward; logits match
+                  phase serve's
   8. kernel_time_fused  at the serve shape with the warm state serving
                   left: the fused kernel held to its plain version on all
                   tables (pooled within the bound, miss lists exact); its
@@ -48,23 +53,39 @@ and the script exits non-zero:
                   version's and a torch embedding_bag's
                   over [hot; cache] (pooled half only); the bound; and a
                   breakdown of one tiered batch
+  8b. replay_tiered  the tiered storage under a flash crowd: max_batch=128,
+                  the shrink rung down to 16, then the degraded rung, and
+                  back to level 0; degraded and exact batch times; no
+                  completion launch in a degraded batch; every exact
+                  answer equal to the device kernel's bit for bit; one
+                  degraded batch against the plain degraded pooling and
+                  its L2 delta against a recompute
+  8c. update      online updates at full width, 8 tables: device and
+                  tiered sessions on one update stream (a full base, two
+                  deltas of 2 % of 3 tables' rows); after the run each
+                  batch against the plain path over its version's tables,
+                  tiered == device bit for bit, every qid's version
   9. kernels      one line per ported kernel (the PERF.md rows), with
-                  registers, blocks per SM and fraction of the bound
+                  registers, blocks per SM and fraction of the bound, and
+                  the launches of each phase that drives it
 
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
-`--stop-after PHASE` ends the run after that phase (a short first call
-for a new kernel); the result lines are then not printed.
+`--stop-after PHASE` ends the run after that phase (build, parity_fused,
+kernel_time, kernel_diag, replay_device, replay_tiered; a short first
+call for a new kernel); the result lines are then not printed.
 `--geometry-sweep` makes kernel_diag also time both kernels at each of
 seven launch geometries (bags per block x ring depth).
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import gc
 import json
 import os
 import resource
+import shutil
 import subprocess
 import sys
 import time
@@ -77,6 +98,7 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.checkpoint import CheckpointManager, ModelUpdateStream  # noqa: E402
 from repro_torch.configs.dlrm_production import CONFIG  # noqa: E402
 from repro_torch.core.access_patterns import (PAPER_UNIQUE_PCT,  # noqa: E402
                                               make_pattern)
@@ -84,11 +106,17 @@ from repro_torch.core.embedding import _pool_rows_core, gather_rows  # noqa: E40
 from repro_torch.kernels.embedding_bag import fused, kernel, ops, ref  # noqa: E402
 from repro_torch.models import DLRM  # noqa: E402
 from repro_torch.ps import PSConfig  # noqa: E402
-from repro_torch.serving import BatcherConfig, ServingSession  # noqa: E402
+from repro_torch.serving import (BatcherConfig, ServingSession,  # noqa: E402
+                                 SLOConfig, UpdateConfig, configure)
+from repro_torch.traffic import (TimedQuery, VirtualClock,  # noqa: E402
+                                 make_traffic, replay)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM data sheet, f32 outside tensor cores
 SERVE_BATCHES = 3
+# serve_tiered serves the first two of them (a tiered batch of 2048 takes
+# about 50 s on the host; the script stays near half its time limit)
+SERVE_TIERED_BATCHES = 2
 SUB_BATCH = 64
 # device bytes kept free beside the tables: a batch's indices, interaction
 # and MLP activations, the sub-batch's plain gather, the timing phase's
@@ -103,6 +131,23 @@ HOST_HEADROOM_BYTES = 4 * 10**9
 LOC_ENTRY_BYTES = 128
 # seed of the trace batch the hot set is planned from: not a served batch
 TRACE_SEED = 100
+# replay_device: the SLO ladder's shrink rung from 256 down to 32, and a
+# flash trace whose spike (16 batch times) outlasts its 5,000 queries, so
+# every SLO check after the spike starts falls inside it (a query's
+# indices are 150 KB: 5,000 queries hold 750 MB of host memory)
+REPLAY_DEVICE_BATCH, REPLAY_DEVICE_MIN = 256, 32
+REPLAY_DEVICE_QUERIES = 5000
+# replay_tiered: 128 down to 16, then the degraded rung; 2,000 queries
+# (300 MB beside the 64 GB cold tier); a 64-query SLO window, so the
+# windowed p99 forgets the spike within the base traffic that follows it
+REPLAY_TIERED_BATCH, REPLAY_TIERED_MIN = 128, 16
+REPLAY_TIERED_QUERIES = 2000
+REPLAY_TIERED_WINDOW = 64
+REPLAY_TIERED_SPIKE = 5             # batch times
+# update: full width with 8 tables (a full base snapshot of all 250 is
+# 64 GB on disk), batches of 512, versions published after steps 1, 3, 5
+UPDATE_TABLES, UPDATE_BATCH, UPDATE_STEPS = 8, 512, 8
+UPDATE_PUBLISH_AFTER = (1, 3, 5)
 
 
 def emit(phase: str, **fields) -> None:
@@ -112,6 +157,13 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def expect(failed: list, cond: bool, msg: str) -> None:
+    """A check whose failure is collected: the phase prints its line with
+    the `failed` list, then main raises."""
+    if not cond:
+        failed.append(msg)
 
 
 def nvidia_smi() -> str:
@@ -959,6 +1011,542 @@ def phase_kernel_diag(tables, idx_served, pattern, opts,
                 fused_synthetic=fused_diag)
 
 
+# -- replay, SLO ladder and online updates -----------------------------------
+
+class LookupTap:
+    """Wraps a storage backend's `lookup` to record, per forward, the rows
+    looked up (the batch, padded or not), the queries in it (from the
+    server's `hint_valid`), whether the backend was degraded, and the bag-
+    and fused-kernel launches the lookup made; keeps the last lookup's
+    indices and pooled output for a check after the batch (outside its
+    timed service)."""
+
+    def __init__(self, storage):
+        self.storage = storage
+        self.records = []
+        self.last = None
+        self._lookup = storage.lookup
+        self._hint_valid = storage.hint_valid
+        self._queries = None
+        storage.lookup = self
+        storage.hint_valid = self.hint_valid
+
+    def hint_valid(self, n: int) -> None:
+        self._queries = n
+        self._hint_valid(n)
+
+    def __call__(self, indices, weights=None, **kw):
+        degraded = self.storage.degraded()
+        bag0, fused0 = kernel.LAUNCHES, fused.LAUNCHES
+        out = self._lookup(indices, weights, **kw)
+        self.records.append({"rows": int(indices.shape[0]),
+                             "queries": self._queries,
+                             "degraded": degraded,
+                             "bag": kernel.LAUNCHES - bag0,
+                             "fused": fused.LAUNCHES - fused0})
+        self.last = (indices, out)
+        return out
+
+    def remove(self) -> None:
+        del self.storage.lookup, self.storage.hint_valid
+
+
+def flash_trace(n: int, t_b: float, batch: int, emb, dense_features: int,
+                pattern, seed: int, spike_len_batches: float):
+    """`n` queries on a `flash` profile: base 0.5x the measured service
+    rate (batch / t_b), a spike of 4x base from one batch time in, lasting
+    `spike_len_batches` batch times. Arrivals are the flash generator's;
+    indices come from the phase's med_hot `pattern` (one rank -> row map
+    for every table, as served batches are made), since the tiered tiers
+    were planned from it."""
+    base = 0.5 * batch / t_b
+    gen = make_traffic("flash", base_qps=base, spike_qps=4.0 * base,
+                       spike_start_s=t_b, spike_len_s=spike_len_batches * t_b,
+                       num_tables=emb.num_tables, rows=emb.rows,
+                       pooling=emb.pooling, dense_features=dense_features,
+                       seed=seed)
+    arrivals = gen.arrival_times(n)
+    idx = sample_indices(pattern, n, emb.num_tables, emb.pooling, seed=seed)
+    dense = np.random.default_rng(seed).normal(
+        size=(n, dense_features)).astype(np.float32)
+    queries = [TimedQuery(qid=i, arrival_s=float(arrivals[i]),
+                          dense=dense[i], indices=idx[i]) for i in range(n)]
+    return queries, gen.profile
+
+
+def calibrate_service(model, batch: int, dense, idx) -> np.ndarray:
+    """Real service seconds of len(dense) // batch full batches through a
+    session without controllers. Only its server is closed: the storage
+    serves the replay next."""
+    sess = ServingSession(model, batcher=BatcherConfig(max_batch=batch,
+                                                       max_wait_s=0.0))
+    sess.submit_batch(dense, idx)
+    sess.drain(timeout_s=600.0)
+    sess.server.close()
+    return np.asarray(sess.stats.batch_latencies_s)
+
+
+def replay_summary(sess, rep, tap, profile, target_ms: float) -> dict:
+    """What a replay did: sheds by reason, SLO levels and actions, the
+    batch sizes served, the SLO checks that fell inside the spike, and
+    batch service times split by degraded and not."""
+    tl = rep.timeline
+    every = sess.slo.cfg.check_every_batches
+    spike_end = profile.spike_start_s + profile.spike_len_s
+    checks_in_spike = sum(1 for i, s in enumerate(tl)
+                          if (i + 1) % every == 0
+                          and profile.spike_start_s <= s.t_s < spike_end)
+    lat = np.asarray(sess.stats.batch_latencies_s) * 1e3
+    check(len(lat) == len(tap.records) == len(tl),
+          f"{len(lat)} batches, {len(tap.records)} lookups, "
+          f"{len(tl)} snapshots")
+    deg = np.array([r["degraded"] for r in tap.records], bool)
+    queries = np.array([r["queries"] for r in tap.records])
+    check(int(queries.sum()) == rep.served, "lookups missed queries")
+
+    def split(mask):
+        if not mask.any():
+            return None
+        return {"batches": int(mask.sum()),
+                "queries": int(queries[mask].sum()),
+                "mean_batch_ms": float(lat[mask].mean()),
+                "p50_batch_ms": float(np.percentile(lat[mask], 50)),
+                "ms_per_query": float(lat[mask].sum()
+                                      / queries[mask].sum())}
+    sizes = collections.Counter(r["rows"] for r in tap.records)
+    timeline = [[round(s.t_s, 4), s.served, s.shed, s.queue_len,
+                 None if s.windowed_p99_ms is None
+                 else round(s.windowed_p99_ms, 2), s.slo_level,
+                 int(s.degraded), int(q), round(float(ms), 2)]
+                for s, q, ms in zip(tl, queries, lat)]
+    return dict(
+        submitted=rep.submitted, admitted=rep.admitted, served=rep.served,
+        shed=rep.shed, shed_frac=rep.shed_frac,
+        shed_reasons=dict(sess.stats.shed_reasons),
+        slo_target_p99_ms=target_ms,
+        final_windowed_p99_ms=rep.final_windowed_p99_ms(),
+        max_slo_level=max(s.slo_level for s in tl),
+        final_slo_level=tl[-1].slo_level,
+        slo_actions=[(e["action"], e["batch"]) for e in sess.slo.events],
+        slo_checks_in_spike=checks_in_spike,
+        spike_s=[profile.spike_start_s, spike_end],
+        trace_end_s=tl[-1].t_s,
+        batch_sizes_served=dict(sorted(sizes.items())),
+        batches=len(lat), non_degraded=split(~deg), degraded=split(deg),
+        bag_launches=sum(r["bag"] for r in tap.records),
+        fused_launches=sum(r["fused"] for r in tap.records),
+        bag_launches_in_degraded=sum(r["bag"] for r, d in
+                                     zip(tap.records, deg) if d),
+        percentiles={k: v for k, v in rep.percentiles.items()
+                     if k.startswith(("p50", "p99", "slo_", "degraded_",
+                                      "served", "shed"))},
+        timeline_columns=["t_s", "served", "shed", "queue", "wp99_ms",
+                          "level", "degraded", "queries", "service_ms"],
+        timeline=timeline)
+
+
+def phase_replay_device(model, pattern, src) -> dict:
+    """dlrm_production on `device` under a flash crowd: service time
+    measured at max_batch=256, an SLO of 3x its p99 with the shrink rung
+    down to 32, a flash trace (base 0.5x the service rate, spike 4x base)
+    that ends inside its spike, so at least 4 SLO checks fall in it. A
+    sample batch's answers are held to the plain path on the card."""
+    emb, F = model.cfg.embedding, model.cfg.dense_features
+    dense, idx = src
+    lat = calibrate_service(model, REPLAY_DEVICE_BATCH,
+                            dense[:8 * REPLAY_DEVICE_BATCH],
+                            idx[:8 * REPLAY_DEVICE_BATCH])
+    p99_s, t_b = float(np.percentile(lat, 99)), float(lat.mean())
+    t1 = time.perf_counter()
+    queries, profile = flash_trace(REPLAY_DEVICE_QUERIES, t_b,
+                                   REPLAY_DEVICE_BATCH, emb, F, pattern,
+                                   seed=21, spike_len_batches=16)
+    trace_s = time.perf_counter() - t1
+    rss_trace = host_rss_bytes()
+    target_ms = 3 * p99_s * 1e3
+    sess = ServingSession(
+        model, batcher=BatcherConfig(max_batch=REPLAY_DEVICE_BATCH,
+                                     max_wait_s=0.002),
+        slo=SLOConfig(target_p99_ms=target_ms,
+                      min_batch=REPLAY_DEVICE_MIN, check_every_batches=2),
+        clock=VirtualClock())
+    tap = LookupTap(sess.storage)
+    served = []
+    sess.server.on_batch = lambda batch, s: served.append(
+        ([q.qid for q in batch], s.copy()))
+    kernel.LAUNCHES = 0
+    t1 = time.perf_counter()
+    rep = replay(sess, queries)
+    replay_s = time.perf_counter() - t1
+    launches = kernel.LAUNCHES
+    tap.remove()
+    sess.close()
+    out = replay_summary(sess, rep, tap, profile, target_ms)
+    failed = []
+    expect(failed, launches == out["batches"] > 0,
+           f"bag kernel launched {launches} times over {out['batches']} "
+           f"forwards")
+    expect(failed, out["slo_checks_in_spike"] >= 4,
+           f"{out['slo_checks_in_spike']} SLO checks inside the spike")
+    expect(failed, out["max_slo_level"] == 2,
+           f"device replay reached SLO level {out['max_slo_level']}, not "
+           f"the shrink rung (2)")
+    expect(failed, set(out["batch_sizes_served"]) == {256, 128, 64, 32},
+           f"batch sizes {out['batch_sizes_served']}")
+    # a sample batch (the last full one at the shrink floor) against the
+    # plain path
+    full = [b for b in served if len(b[0]) == REPLAY_DEVICE_MIN]
+    qids, scores = (full or served)[-1]
+    d64 = torch.from_numpy(np.stack([queries[q].dense for q in qids])).cuda()
+    i64 = torch.from_numpy(np.stack([queries[q].indices
+                                     for q in qids])).cuda()
+    with torch.inference_mode():
+        rows = gather_rows(model.ebc.tables, i64)
+        plain = model.forward_from_pooled(
+            d64, _pool_rows_core(rows, None, emb.combine))
+        del rows
+    plain = plain.cpu().numpy()
+    diff = float(np.abs(plain - scores).max())
+    expect(failed, bool(np.isfinite(scores).all()), "non-finite logits")
+    expect(failed, bool(np.allclose(scores, plain, rtol=1e-4, atol=1e-4)),
+           f"replayed logits differ from the plain path by {diff:.3e}")
+    return dict(
+        config="dlrm_production", backend="device", tables=emb.num_tables,
+        max_batch=REPLAY_DEVICE_BATCH, min_batch=REPLAY_DEVICE_MIN,
+        calibration_batch_ms=(lat * 1e3).tolist(),
+        service_p99_ms=p99_s * 1e3, service_rate_qps=REPLAY_DEVICE_BATCH / t_b,
+        trace={"kind": "flash", "queries": len(queries),
+               "base_qps": profile.base_qps, "spike_qps": profile.spike_qps,
+               "seconds_to_make": trace_s},
+        **out, sample_batch={"queries": len(qids),
+                             "logits_max_abs_diff_vs_plain": diff,
+                             "tolerance": "rtol=1e-4 atol=1e-4"},
+        replay_s=replay_s, host_rss_bytes_after_trace=rss_trace,
+        host_peak_rss_bytes=host_peak_rss_bytes(), failed=failed)
+
+
+def compact_bag_pooled(host_tables, idx: np.ndarray, opts) -> torch.Tensor:
+    """The `device` backend's answer for `idx` [B, T, L] without the
+    device tables: each table's distinct rows copied to the card as a
+    compact table, indices remapped into it, and the bag kernel launched
+    over all tables, as phase serve launched it. A bag's rows and their
+    order are the same, so the pooled sums are the same bits."""
+    B, T, L = idx.shape
+    uniq = [np.unique(idx[:, t]) for t in range(T)]
+    U = max(u.size for u in uniq)
+    D = host_tables.shape[2]
+    compact = torch.zeros((T, U, D), dtype=torch.float32)
+    remapped = np.empty_like(idx)
+    for t, u in enumerate(uniq):
+        compact[t, :u.size] = torch.from_numpy(host_tables[t]).index_select(
+            0, torch.from_numpy(u.astype(np.int64)))
+        remapped[:, t] = np.searchsorted(u, idx[:, t])
+    launches = kernel.LAUNCHES
+    out = kernel.embedding_bag_cuda(
+        compact.cuda(), torch.from_numpy(remapped).cuda(), None, opts)
+    kernel.LAUNCHES = launches          # a check, not the main path
+    return out
+
+
+def phase_replay_tiered(tiered, pattern, device_opts, src) -> dict:
+    """The tiered storage serve_tiered built, under a flash crowd: service
+    time measured at max_batch=128, an SLO of 3x its p99 with the shrink
+    rung down to 16 and the degraded rung above it. Batches are not padded
+    (a padded row costs a host gather on `tiered`). Every answer that is
+    not degraded is held to the `device` kernel's bit for bit (the law);
+    one degraded batch is held to the plain degraded pooling (misses as
+    zeros), and its L2 delta to a recompute from the cold rows."""
+    emb, F = tiered.cfg.embedding, tiered.cfg.dense_features
+    storage = tiered.ebc.storage
+    cold = storage.ps.cold.tables
+    dense, idx = src
+    n_cal = 3 * REPLAY_TIERED_BATCH
+    lat = calibrate_service(tiered, REPLAY_TIERED_BATCH, dense[:n_cal],
+                            idx[:n_cal])
+    p99_s, t_b = float(np.percentile(lat, 99)), float(lat.mean())
+    queries, profile = flash_trace(REPLAY_TIERED_QUERIES, t_b,
+                                   REPLAY_TIERED_BATCH, emb, F, pattern,
+                                   seed=22,
+                                   spike_len_batches=REPLAY_TIERED_SPIKE)
+    rss = {"trace": host_rss_bytes()}
+    target_ms = 3 * p99_s * 1e3
+    sess = ServingSession(
+        tiered, batcher=BatcherConfig(max_batch=REPLAY_TIERED_BATCH,
+                                      max_wait_s=0.002, pad_to_max=False),
+        slo=SLOConfig(target_p99_ms=target_ms, min_batch=REPLAY_TIERED_MIN,
+                      check_every_batches=2,
+                      window_queries=REPLAY_TIERED_WINDOW),
+        clock=VirtualClock())
+    tap = LookupTap(storage)
+    law = {"batches": 0, "queries": 0, "seconds": 0.0}
+    failed = []
+
+    def hold_to_device(batch, scores):
+        indices, pooled = tap.last
+        if tap.records[-1]["degraded"]:
+            return
+        t1 = time.perf_counter()
+        want = compact_bag_pooled(cold, indices, device_opts)
+        expect(failed, bool(torch.equal(pooled, want)),
+               f"tiered != device on a replayed batch of {len(batch)}: "
+               f"max diff {(pooled - want).abs().max().item():.3e}")
+        law["batches"] += 1
+        law["queries"] += len(batch)
+        law["seconds"] += time.perf_counter() - t1
+    sess.server.on_batch = hold_to_device
+    kernel.LAUNCHES = fused.LAUNCHES = 0
+    t1 = time.perf_counter()
+    rep = replay(sess, queries, window_queries=REPLAY_TIERED_WINDOW)
+    replay_s = time.perf_counter() - t1
+    bag_launches, fused_launches = kernel.LAUNCHES, fused.LAUNCHES
+    rss["replayed"] = host_rss_bytes()
+    tap.remove()
+    out = replay_summary(sess, rep, tap, profile, target_ms)
+    expect(failed, fused_launches == out["batches"] > 0,
+           f"fused kernel launched {fused_launches} times over "
+           f"{out['batches']} forwards")
+    expect(failed, bag_launches == out["bag_launches"] > 0,
+           f"{bag_launches} completion launches, {out['bag_launches']} in "
+           f"the lookups")
+    expect(failed, out["max_slo_level"] == 3, f"tiered replay reached SLO "
+           f"level {out['max_slo_level']}, not the degraded rung (3)")
+    expect(failed, out["final_slo_level"] == 0,
+           f"tiered replay ended at SLO level {out['final_slo_level']}")
+    expect(failed, out["degraded"] is not None
+           and out["non_degraded"] is not None,
+           "no degraded or no exact batches")
+    expect(failed, out["bag_launches_in_degraded"] == 0,
+           f"{out['bag_launches_in_degraded']} completion launches in "
+           f"degraded batches")
+    expect(failed, out["non_degraded"] is not None
+           and law["batches"] == out["non_degraded"]["batches"],
+           f"law checked on {law['batches']} exact batches")
+
+    # one degraded batch by hand: 16 fresh queries, the slot map read
+    # before (no counter moves), then the lookup under degraded mode
+    idx16 = sample_indices(pattern, 16, emb.num_tables, emb.pooling,
+                           seed=23)
+    storage.set_degraded(True)
+    slot_map = storage.ps.build_slot_map(idx16)
+    before = storage.stats()
+    bag0 = kernel.LAUNCHES
+    with torch.no_grad():
+        got = tiered.ebc(idx16)
+    torch.cuda.synchronize()
+    bag_in_check = kernel.LAUNCHES - bag0
+    after = storage.stats()
+    storage.set_degraded(False)
+    sess.close()
+    miss = slot_map == fused.MISS                              # [16, T, L]
+    rows = cold[np.arange(emb.num_tables)[None, :, None], idx16]
+    rows[miss] = 0.0
+    rows_t = torch.from_numpy(rows).cuda()
+    plain = _pool_rows_core(rows_t, None, emb.combine)
+    degraded_cmp = compare(got, plain,
+                           2 * ref.F32_EPS * rows_t.abs().sum(dim=2),
+                           "degraded batch pooled (misses as zeros)")
+    del rows, rows_t
+    miss_rows = cold[np.nonzero(miss)[1], idx16[miss]].astype(np.float64)
+    l2_want = float(np.sqrt((miss_rows ** 2).sum()))
+    l2_got = float(np.sqrt(after["degraded_l2_sq"]
+                           - before["degraded_l2_sq"]))
+    expect(failed, bag_in_check == 0, f"{bag_in_check} completion launches "
+           f"in the degraded check batch")
+    expect(failed, after["degraded_rows"] - before["degraded_rows"]
+           == int(miss.sum()),
+           "degraded_rows does not count the batch's misses")
+    expect(failed, abs(l2_got - l2_want) <= 1e-6 * l2_want,
+           f"degraded_l2_delta {l2_got} vs recompute {l2_want}")
+    return dict(
+        config="dlrm_production", backend="tiered", tables=emb.num_tables,
+        max_batch=REPLAY_TIERED_BATCH, min_batch=REPLAY_TIERED_MIN,
+        window_queries=REPLAY_TIERED_WINDOW, pad_to_max=False,
+        calibration_batch_ms=(lat * 1e3).tolist(),
+        service_p99_ms=p99_s * 1e3, service_rate_qps=REPLAY_TIERED_BATCH / t_b,
+        trace={"kind": "flash", "queries": len(queries),
+               "base_qps": profile.base_qps, "spike_qps": profile.spike_qps},
+        **out, law={**law, "equal": True},
+        degraded_check={"queries": 16, "misses": int(miss.sum()),
+                        "max_abs_err": degraded_cmp["max_abs_err"],
+                        "max_err_over_bound":
+                            degraded_cmp["max_err_over_bound"],
+                        "l2_delta": l2_got, "l2_delta_recomputed": l2_want,
+                        "completion_launches": bag_in_check},
+        replay_s=replay_s, host_rss_bytes=rss,
+        host_peak_rss_bytes=host_peak_rss_bytes(), failed=failed)
+
+
+def phase_update(cfg, pattern) -> dict:
+    """Online updates at full width with the table count cut: `device` and
+    `tiered` sessions over the same weights and one update stream (one
+    full base, then two deltas touching 2 % of the rows of 3 tables),
+    batches served between versions. After the run, every batch is held
+    to the plain path over `load_version` tables of its pinned version,
+    tiered to device bit for bit, and every qid's version to the
+    schedule."""
+    emb = dataclasses.replace(cfg.embedding, num_tables=UPDATE_TABLES)
+    T, R, L, D = emb.num_tables, emb.rows, emb.pooling, emb.dim
+    B = UPDATE_BATCH
+    dev_model = DLRM(dataclasses.replace(cfg, embedding=emb),
+                     device="cuda", seed=3)
+    v0 = dev_model.ebc.tables[:T].to("cpu", copy=True)
+    tiered = DLRM(dataclasses.replace(cfg, embedding=dataclasses.replace(
+        emb, storage="tiered")), device="cuda", tables=v0.clone(), seed=3)
+    tiered.bottom, tiered.top = dev_model.bottom, dev_model.top
+    trace = sample_indices(pattern, B, T, L, seed=TRACE_SEED)
+    tiered.ebc.storage.build(PSConfig(
+        hot_rows=R // TIER_FRACTION, warm_slots=R // TIER_FRACTION,
+        warm_backing="device", fused_lookup=True, async_prefetch=True,
+        prefetch_depth=2), trace=trace)
+    root = os.path.join(ROOT, "build", "chip_smoke_updates")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    disk = shutil.disk_usage(root)
+    # consumers attach before the base is published, so the base lands
+    # through the update path too
+    sessions = {}
+    for name, model in (("device", dev_model), ("tiered", tiered)):
+        sessions[name] = ServingSession(
+            model, batcher=BatcherConfig(max_batch=B, max_wait_s=0.0),
+            controllers=configure(updates=UpdateConfig(
+                ModelUpdateStream(root), poll_every_batches=1)))
+    pub = ModelUpdateStream(root)
+    taps = {name: LookupTap(sess.storage) for name, sess in sessions.items()}
+    served = {name: [] for name in sessions}
+    traffic = {}                        # qid -> (dense, indices)
+    for name, sess in sessions.items():
+        sess.server.on_batch = lambda batch, s, out=served[name]: out.append(
+            ([q.qid for q in batch], s.copy()))
+    rng = np.random.default_rng(4)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    std = float(dev_model.ebc.tables[:T].std())
+    published = []
+    failed = []
+    kernel.LAUNCHES = fused.LAUNCHES = 0
+    t_serve = time.perf_counter()
+    for step in range(UPDATE_STEPS):
+        dense = rng.normal(size=(B, cfg.dense_features)).astype(np.float32)
+        idx = sample_indices(pattern, B, T, L, seed=40 + step)
+        traffic.update((step * B + i, (dense[i], idx[i])) for i in range(B))
+        for sess in sessions.values():
+            sess.submit_batch(dense, idx, qid0=step * B)
+            while sess.poll(force=True):
+                pass
+        if step in UPDATE_PUBLISH_AFTER:
+            t1 = time.perf_counter()
+            if not published:
+                v = pub.publish_full(torch.randn(
+                    (T, R, D), generator=gen, device="cuda") * std)
+            else:
+                changed = {}
+                for t in rng.choice(T, size=3, replace=False):
+                    rows = rng.choice(R, size=R // 50, replace=False)
+                    changed[int(t)] = (rows, (rng.normal(
+                        size=(rows.size, D)) * std).astype(np.float32))
+                v = pub.publish_delta(changed)
+            published.append({"version": v, "after_step": step,
+                              "publish_s": time.perf_counter() - t1})
+    for sess in sessions.values():
+        sess.drain(timeout_s=600.0)
+    serve_s = time.perf_counter() - t_serve
+    launches = {name: {"forwards": len(tap.records),
+                       "bag": sum(r["bag"] for r in tap.records),
+                       "fused": sum(r["fused"] for r in tap.records)}
+                for name, tap in taps.items()}
+    for tap in taps.values():
+        tap.remove()
+    dev_n, tier_n = launches["device"], launches["tiered"]
+    expect(failed, kernel.LAUNCHES == dev_n["bag"] + tier_n["bag"]
+           and fused.LAUNCHES == tier_n["fused"],
+           f"launches outside the lookups: {kernel.LAUNCHES} bag, "
+           f"{fused.LAUNCHES} fused")
+    expect(failed, dev_n["bag"] == dev_n["forwards"] == UPDATE_STEPS
+           and tier_n["fused"] == tier_n["forwards"] == UPDATE_STEPS
+           and tier_n["bag"] > 0, f"launches in the update run: {launches}")
+    pct = {name: sess.percentiles() for name, sess in sessions.items()}
+    disk_used = sum(os.path.getsize(os.path.join(d, f))
+                    for d, _, files in os.walk(root) for f in files)
+    for name, p in pct.items():
+        got = (p["model_version"], p["updates_applied"], p["updates_full"],
+               p["updates_delta"])
+        expect(failed, got == (3, 3, 1, 2),
+               f"{name}: (version, applied, full, delta) = {got}")
+
+    # every batch single-version, the same version in both sessions, and
+    # tiered == device bit for bit
+    dev_batches, tier_batches = served["device"], served["tiered"]
+    expect(failed, [b[0] for b in dev_batches] == [b[0] for b in
+                                                    tier_batches],
+           "the two sessions served other batches")
+    by_version = collections.defaultdict(list)
+    for (qids, d_scores), (_, t_scores) in zip(dev_batches, tier_batches):
+        vs = {sessions["device"].version_of(q) for q in qids}
+        vt = {sessions["tiered"].version_of(q) for q in qids}
+        expect(failed, len(vs) == 1 and vs == vt,
+               f"batch versions: device {vs}, tiered {vt}")
+        expect(failed, bool(np.array_equal(d_scores, t_scores)),
+               f"tiered != device after an update: max diff "
+               f"{np.abs(d_scores - t_scores).max():.3e}")
+        by_version[min(vs)].append((qids, d_scores))
+    # the schedule: a version published after step s is applied after the
+    # first batch of step s + 1, so step s + 2 is the first served by it
+    for step in range(UPDATE_STEPS):
+        want = sum(1 for p in published if p["after_step"] + 2 <= step)
+        for q in (step * B, (step + 1) * B - 1):
+            got = sessions["device"].version_of(q)
+            expect(failed, got == want,
+                   f"qid {q} (step {step}) pinned to v{got}, not v{want}")
+    expect(failed, sorted(by_version) == [0, 1, 2, 3],
+           f"versions served: {sorted(by_version)}")
+
+    # each version's batches against the plain path over its tables
+    mgr = CheckpointManager(root)
+    plain_diff = {}
+    for v, batches_v in sorted(by_version.items()):
+        tables_v = v0.numpy() if v == 0 else mgr.load_version(v)
+        worst = 0.0
+        for qids, scores in batches_v:
+            d = torch.from_numpy(np.stack([traffic[q][0]
+                                           for q in qids])).cuda()
+            i = np.stack([traffic[q][1] for q in qids])
+            rows = torch.from_numpy(
+                tables_v[np.arange(T)[None, :, None], i]).cuda()
+            with torch.inference_mode():
+                logits = dev_model.forward_from_pooled(
+                    d, _pool_rows_core(rows, None, emb.combine)).cpu().numpy()
+            del rows
+            diff = float(np.abs(logits - scores).max())
+            worst = max(worst, diff)
+            expect(failed, bool(np.allclose(scores, logits, rtol=1e-4,
+                                            atol=1e-4)),
+                   f"v{v}: logits differ from the plain path over its "
+                   f"tables by {diff:.3e}")
+        plain_diff[f"v{v}"] = {"batches": len(batches_v),
+                               "logits_max_abs_diff": worst}
+        del tables_v
+    for sess in sessions.values():
+        sess.close()
+    shutil.rmtree(root, ignore_errors=True)
+    keep = ("model_version", "updates_applied", "updates_full",
+            "updates_delta", "updates_rolled_back", "update_stall_s",
+            "p50_ms", "p99_ms", "mean_batch_ms", "served")
+    return dict(
+        config="dlrm_production", tables=T, rows=R, dim=D, pooling=L,
+        batch=B, steps=UPDATE_STEPS,
+        cut={"num_tables": [cfg.embedding.num_tables, T],
+             "reason": "a full base snapshot of 250 tables is 64 GB on "
+                       "disk and in host memory"},
+        published=published, launches=launches,
+        sessions={name: {k: p[k] for k in keep if k in p}
+                  for name, p in pct.items()},
+        plain=plain_diff, tiered_equals_device=True,
+        logits_tolerance="rtol=1e-4 atol=1e-4",
+        disk={"free_bytes": disk.free, "total_bytes": disk.total,
+              "stream_bytes": disk_used},
+        serve_s=serve_s, host_peak_rss_bytes=host_peak_rss_bytes(),
+        failed=failed)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--stop-after", default=None,
@@ -1162,18 +1750,46 @@ def main() -> int:
     if stop("kernel_diag"):
         return 0
 
+    # 6c. replay_device: the flash crowd and the SLO ladder on `device`
+    t0 = time.perf_counter()
+    replay_dev = phase_replay_device(model, pattern, batches[0])
+    emit("replay_device", **replay_dev, seconds=time.perf_counter() - t0)
+    check(not replay_dev["failed"], f"replay_device: {replay_dev['failed']}")
+    if stop("replay_device"):
+        return 0
+
     # 7. serve_tiered: the same weights and batches on the tiered backend
     t0 = time.perf_counter()
+    n_tiered = SERVE_TIERED_BATCHES
     fields, sess, tiered, tiered_batches = phase_serve_tiered(
-        model, batches, logits, deadline_s=600.0)
+        model, batches[:n_tiered], logits[:B * n_tiered], deadline_s=600.0)
     del model
     emit("serve_tiered", **fields, seconds=time.perf_counter() - t0)
 
     # 8. kernel_time_fused, with the warm state serving left
     t0 = time.perf_counter()
     timed = phase_kernel_time_fused(sess, tiered, tiered_batches)
-    sess.close()
+    sess.server.close()             # the storage serves replay_tiered next
     emit("kernel_time_fused", **timed, seconds=time.perf_counter() - t0)
+
+    # 8b. replay_tiered: the ladder down to the degraded rung and back
+    t0 = time.perf_counter()
+    replay_tier = phase_replay_tiered(tiered, pattern, opts,
+                                      tiered_batches[0])
+    del sess, tiered, tiered_batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("replay_tiered", **replay_tier, seconds=time.perf_counter() - t0)
+    check(not replay_tier["failed"],
+          f"replay_tiered: {replay_tier['failed']}")
+    if stop("replay_tiered"):
+        return 0
+
+    # 8c. update: online model updates on `device` and `tiered`
+    t0 = time.perf_counter()
+    update = phase_update(cfg, pattern)
+    emit("update", **update, seconds=time.perf_counter() - t0)
+    check(not update["failed"], f"update: {update['failed']}")
 
     # 9. kernels
     def row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -1194,7 +1810,13 @@ def main() -> int:
             plain_ms, max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", library_ms,
             bag_info,
-            launches_tiered=fields["bag_kernel_launches"]),
+            launches_tiered=fields["bag_kernel_launches"],
+            launches_replay_device=replay_dev["bag_launches"],
+            launches_replay_tiered=replay_tier["bag_launches"],
+            launches_replay_tiered_degraded=replay_tier[
+                "bag_launches_in_degraded"],
+            launches_update_device=update["launches"]["device"]["bag"],
+            launches_update_tiered=update["launches"]["tiered"]["bag"]),
         row("fused_warm_lookup", csrc + "fused_lookup.cu",
             "src/repro/kernels/embedding_bag/fused.py:266",
             fields["fused_launches"],
@@ -1202,7 +1824,10 @@ def main() -> int:
             timed["ms"], timed["plain_ms"], timed["bound_ms"],
             timed["bound_by"], timed["library_ms"], timed,
             pool_pass_ms=timed["pool_pass_ms"],
-            list_pass_ms=timed["list_pass_ms"])]}), flush=True)
+            list_pass_ms=timed["list_pass_ms"],
+            launches_replay_tiered=replay_tier["fused_launches"],
+            launches_update=update["launches"]["tiered"]["fused"])]}),
+          flush=True)
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

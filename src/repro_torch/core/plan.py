@@ -1,12 +1,13 @@
 """Tier-capacity planning for the tiered parameter server (paper §VII's
 profiling recipe applied to the memory hierarchy).
 
-This slice ports the part of `repro/core/plan.py` that the tiered backend
-uses: `TierCapacityPlan` and `plan_tier_capacities` (numpy, copied), and
-`estimate_device_budget`, which reads the card's free memory from
-`torch.cuda.mem_get_info` where the TPU path read the runtime's memory
-stats. The embedding-stage, admission and shard planners come with the
-layers they size (ROADMAP.md Queue 1).
+The port holds the parts of `repro/core/plan.py` that the tiered backend
+and the serving controllers use: `TierCapacityPlan`,
+`plan_tier_capacities`, `AdmissionPlan` and `plan_admission` (numpy,
+copied), and `estimate_device_budget`, which reads the card's free memory
+from `torch.cuda.mem_get_info` where the TPU path read the runtime's
+memory stats. The embedding-stage and shard planners come with the layers
+they size (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -125,3 +126,59 @@ def estimate_device_budget(fraction: float = 0.5,
         return fallback_bytes
     free, _total = torch.cuda.mem_get_info(dev)
     return int(max(0, free) * fraction)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionPlan:
+    """Planned admission knobs for `serving.BatcherConfig` under a p99 SLO.
+
+    The wait a query sees is roughly (batches ahead of it) x (batch
+    service time), so the queue length at which predicted wait crosses the
+    latency budget is the natural shed point. `deadline_ms` is the budget
+    the batcher's deadline predictor enforces; `max_queue` is the hard cap
+    equivalent (same crossing point, enforced without a service-time
+    estimate), usable as a belt-and-braces bound or on its own before the
+    service EWMA has warmed up.
+    """
+
+    deadline_ms: float            # BatcherConfig.deadline_ms
+    max_queue: int                # BatcherConfig.max_queue
+    batches_in_budget: int        # whole batches servable inside the budget
+    sustainable_qps: float        # max_batch / batch_service: shed-free rate
+    notes: tuple[str, ...]
+
+
+def plan_admission(target_p99_ms: float, batch_service_ms: float,
+                   max_batch: int, *,
+                   headroom: float = 0.8) -> AdmissionPlan:
+    """Size admission control from a latency target and a measured batch
+    service time (the §VII recipe applied to the serving queue).
+
+    `headroom` shrinks the budget below the raw target so that batching-
+    window waits and service-time jitter land inside the SLO rather than
+    on it: `deadline_ms = target * headroom`. With B = budget // service
+    whole batches servable in the budget, a query admitted behind more
+    than B-1 full batches would finish late, so `max_queue = B *
+    max_batch` (at least one batch — admission never blocks an idle
+    server).
+    """
+    if target_p99_ms <= 0:
+        raise ValueError("target_p99_ms must be positive")
+    if batch_service_ms <= 0:
+        raise ValueError("batch_service_ms must be positive")
+    if max_batch <= 0:
+        raise ValueError("max_batch must be positive")
+    if not (0.0 < headroom <= 1.0):
+        raise ValueError("headroom must be in (0, 1]")
+    notes = []
+    deadline_ms = target_p99_ms * headroom
+    batches = int(deadline_ms // batch_service_ms)
+    if batches < 1:
+        notes.append("budget below one batch service time; queue capped "
+                     "at a single batch (every queued query is late)")
+        batches = 1
+    return AdmissionPlan(
+        deadline_ms=float(deadline_ms), max_queue=int(batches * max_batch),
+        batches_in_budget=batches,
+        sustainable_qps=float(max_batch / batch_service_ms * 1e3),
+        notes=tuple(notes))

@@ -9,15 +9,18 @@ Public surface:
                       `repro_torch.core.plan.plan_tier_capacities` result.
   `WarmCache` / `DeviceWarmCache` — host- and device-backed warm tiers.
   `PrefetchQueue` / `AsyncPrefetcher` — the two staging engines.
-
-The runtime auto-tuners of `repro.ps.tuning` come with the sharded layer
-(ROADMAP.md Queue 1 item 9).
+  `AutoTuneConfig` / `AutoTuner` / `QueueDepthController`
+                    — runtime queue-depth and tier-capacity tuning
+                      (`ps.tuning`), driven by `ServingSession`.
 """
 from repro_torch.ps.cold_store import ColdStore
 from repro_torch.ps.config import PSConfig
 from repro_torch.ps.prefetch import AsyncPrefetcher, PrefetchQueue, StagedBatch
 from repro_torch.ps.server import ParameterServer
+from repro_torch.ps.tuning import (AutoTuneConfig, AutoTuner,
+                                   QueueDepthController)
 from repro_torch.ps.warm_cache import DeviceWarmCache, WarmCache
 
 __all__ = ["ColdStore", "PSConfig", "AsyncPrefetcher", "PrefetchQueue",
-           "StagedBatch", "ParameterServer", "DeviceWarmCache", "WarmCache"]
+           "StagedBatch", "ParameterServer", "DeviceWarmCache", "WarmCache",
+           "AutoTuneConfig", "AutoTuner", "QueueDepthController"]

@@ -72,7 +72,8 @@ class ColdStore:
         self.num_tables, self.num_rows, self.dim = tables.shape
         self.gathered_rows = 0      # rows pulled host->device (proxy)
         self.gather_calls = 0
-        self._norms_sq: dict[int, np.ndarray] = {}   # lazy, per table [R]
+        # per table [R] float64, NaN until a row's norm is first asked for
+        self._norms_sq: dict[int, np.ndarray] = {}
         self._lock = threading.Lock()   # counters only; tables are read-only
 
     @property
@@ -95,23 +96,29 @@ class ColdStore:
             self.gathered_rows = 0
             self.gather_calls = 0
 
-    def row_norms_sq(self, table: int) -> np.ndarray:
-        """Per-row squared L2 norms for one table, [R] float64.
+    def row_norms_sq(self, table: int, rows=None) -> np.ndarray:
+        """Squared L2 norms (float64) of `rows` of one table, or of every
+        row when `rows` is None.
 
-        Lazily computed once per table then cached (tables are immutable
-        during serving). Lets degraded-mode serving report the EXACT L2
-        error of zero-filling a row — ||row||² — without ever performing
-        the gather it skipped.
-        """
-        norms = self._norms_sq.get(table)
-        if norms is None:
-            with self._lock:
-                norms = self._norms_sq.get(table)
-                if norms is None:
-                    t64 = self.tables[table].astype(np.float64, copy=False)
-                    norms = np.einsum("rd,rd->r", t64, t64)
-                    self._norms_sq[table] = norms
-        return norms
+        Each row's norm is computed the first time it is asked for and
+        cached (rows change only through `update_rows`). Lets
+        degraded-mode serving report the EXACT L2 error of zero-filling a
+        row — ||row||² — reading only the rows it zero-fills: computing a
+        whole table on first use would stall the first degraded batch for
+        a scan of every table (64 GB at the production size)."""
+        with self._lock:
+            norms = self._norms_sq.get(table)
+            if norms is None:
+                norms = np.full(self.num_rows, np.nan)
+                self._norms_sq[table] = norms
+            if rows is None:
+                rows = np.arange(self.num_rows)
+            rows = np.asarray(rows, np.int64)
+            missing = np.unique(rows[np.isnan(norms[rows])])
+            if missing.size:
+                r64 = self.tables[table][missing].astype(np.float64)
+                norms[missing] = np.einsum("rd,rd->r", r64, r64)
+            return norms[rows]
 
     def update_rows(self, table: int, rows: np.ndarray,
                     values: np.ndarray) -> None:
@@ -120,15 +127,18 @@ class ColdStore:
         The 'immutable during serving' contract above still holds where
         it matters: this runs on the single serving thread at update
         COMMIT, after the prefetch queue is flushed, so no concurrent
-        gather can observe a torn row. Drops the lazy norm cache —
-        degraded-mode L2 accounting must see the new bytes.
+        gather can observe a torn row. Forgets the cached norms of the
+        rows it writes — degraded-mode L2 accounting must see the new
+        bytes.
 
         Copy-on-first-write: construction may have adopted a read-only
         view; the first committed update privatizes it."""
         if not self.tables.flags.writeable:
             self.tables = self.tables.copy()
         self.tables[table, rows] = values
-        self._norms_sq.clear()
+        norms = self._norms_sq.get(table)
+        if norms is not None:
+            norms[rows] = np.nan
 
     def drop_norm_cache(self) -> None:
         """Invalidate the lazy norm cache after the table bytes changed

@@ -229,13 +229,13 @@ class ParameterServer:
                 # admit()'s (first access = miss, duplicates = hits) so
                 # the hot+warm+cold == total invariant survives; the
                 # degraded counters ride on top, with the exact L2 error
-                # of each zero-fill from the precomputed row norms.
+                # of each zero-fill from the zero-filled rows' norms.
                 vals[~resident] = 0
                 warm.misses += len(mu)
                 warm.hits += int(mcounts.sum()) - len(mu)
                 self.degraded_rows += int(mcounts.sum())
                 self.degraded_l2_sq += float(
-                    (self.cold.row_norms_sq(t)[mu] * mcounts).sum())
+                    (self.cold.row_norms_sq(t, mu) * mcounts).sum())
             else:
                 srows, sdata, residual = self.prefetch.split_misses(
                     staged, t, mu)
@@ -470,7 +470,7 @@ class ParameterServer:
                 warm.hits += int(mcounts.sum()) - len(mu)
                 self.degraded_rows += int(mcounts.sum())
                 self.degraded_l2_sq += float(
-                    (self.cold.row_norms_sq(t)[mu] * mcounts).sum())
+                    (self.cold.row_norms_sq(t, mu) * mcounts).sum())
                 continue
             with self._timed("cold_gather"):
                 srows, sdata, residual = self.prefetch.split_misses(

@@ -15,8 +15,12 @@ point where the batch's device work is waited for.
 With a storage backend bound, the loop also stages the NEXT batch's cache
 misses before executing the current one (prefetch overlap) and re-plans
 the hot set every `refresh_every_batches` batches, on a helper thread when
-`async_refresh=True` — all through the protocol verbs. The replay clock of
-the TPU path comes with `traffic/` (ROADMAP.md Queue 1 item 8).
+`async_refresh=True` — all through the protocol verbs.
+
+`clock=` puts the loop on trace time: a replay harness passes a
+`repro_torch.traffic.VirtualClock`, each executed batch advances it by the
+batch's real service seconds, and query latency is virtual queueing plus
+real service.
 """
 from __future__ import annotations
 
@@ -211,9 +215,16 @@ class InferenceServer:
     def __init__(self, forward: Callable, batcher_cfg: BatcherConfig,
                  sla_ms: float = 50.0, storage=None,
                  refresh_every_batches: int = 0,
-                 async_refresh: bool = False):
+                 async_refresh: bool = False,
+                 clock: Optional[Callable] = None):
         self.forward = forward
-        self.batcher = Batcher(batcher_cfg)
+        # `clock` abstracts serving time: None = real time.perf_counter;
+        # a replay harness passes a `repro_torch.traffic.VirtualClock`
+        # (callable with an `advance()` method) so latencies are measured
+        # in trace time — real batch service durations advance it
+        self.clock = clock if clock is not None else time.perf_counter
+        self._clock_advance = getattr(clock, "advance", None)
+        self.batcher = Batcher(batcher_cfg, clock=self.clock)
         self.sla_s = sla_ms / 1e3
         self.stats = ServeStats()
         self.storage = storage
@@ -338,11 +349,20 @@ class InferenceServer:
         t1 = time.perf_counter()
         if self.on_batch is not None:
             self.on_batch(batch, scores[:n])
+        # batch service time is always REAL seconds (it feeds the deadline
+        # admission's EWMA), and it ends once the scores are on the host;
+        # a virtual clock advances by exactly that duration, so query
+        # latencies = virtual queueing delay + real service
         service = t1 - t0
         self.batcher.observe_service(service)
+        if self._clock_advance is not None:
+            self._clock_advance(service)
+            done = self.clock()
+        else:
+            done = t1
         self.stats.batch_latencies_s.append(service)
         for q in batch:
-            self.stats.query_latencies_s.append(t1 - q.arrival_s)
+            self.stats.query_latencies_s.append(done - q.arrival_s)
         self.stats.served += n
         self.stats.request_queue_len = len(self.batcher.queue)
         if self.storage is not None:
@@ -354,17 +374,28 @@ class InferenceServer:
             self.stats.storage_stats = self.storage.stats()
         return n
 
-    def drain(self, timeout_s: float = 10.0) -> None:
+    def drain(self, timeout_s: float = 10.0, poll=None) -> None:
         """Serve until the queue empties. Honours the batching window while
         it is open, but force-flushes the partial batch once the head
         query's deadline — or this call's own timeout — is reached, so a
-        sub-`max_batch` remainder can never starve (busy-spin bug)."""
+        sub-`max_batch` remainder can never starve (busy-spin bug).
+        `poll` substitutes a wrapped poll (the session passes its
+        controller-aware one) so the force-flush law lives only here."""
+        poll = self.poll if poll is None else poll
         t0 = time.perf_counter()
         while self.batcher.queue:
+            now = self.clock()
             head_deadline = (self.batcher.queue[0].arrival_s
                              + self.batcher.cfg.max_wait_s)
-            now = time.perf_counter()
-            self.poll(force=now >= head_deadline or now - t0 >= timeout_s)
+            force = (now >= head_deadline
+                     or time.perf_counter() - t0 >= timeout_s)
+            served = poll(force=force)
+            if (not served and not force
+                    and self._clock_advance is not None):
+                # a virtual clock only moves when a batch executes, so a
+                # partial batch inside its batching window would spin here
+                # forever — model the wait by advancing to the deadline
+                self._clock_advance(max(0.0, head_deadline - self.clock()))
 
     def close(self) -> None:
         """Finish any in-flight async refresh — wait for the planner,

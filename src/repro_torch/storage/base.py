@@ -15,6 +15,9 @@ programs against:
                                           safe) and a mutating install.
   set_degraded() / set_prefetch_depth() / retune_capacities()
                                         — overload and runtime-tuning knobs.
+  update_routing() / plan_migration() / install_migration()
+                                        — live placement (replica routing,
+                                          table migration); inert here.
   begin/apply/commit/abort_update()     — online model updates, with
   version()                               `version()` the committed one.
   stats() / reset_stats() / flush()     — counters and cache hygiene.
@@ -25,9 +28,10 @@ programs against:
 worth calling — and a caller who requires a capability fails fast with
 `require_capability` instead of silently losing overlap.
 
-The TPU path's live-placement verbs (`update_routing`, `plan_migration`,
-`install_migration`) and its `shardable`/`migratable` flags come with the
-sharded backend (ROADMAP.md Queue 1 item 9).
+The live-placement verbs are called by the SLO controller and the
+auto-tuner on every backend; only a sharded backend (ROADMAP.md Queue 1
+item 9, with its `shardable` flag) would report `migratable` and give them
+work. `device` and `tiered` keep the inert defaults.
 
 Backends register under a string key in `repro_torch.storage.registry`;
 `EmbeddingStageConfig.storage` is a thin lookup into that registry.
@@ -67,6 +71,10 @@ class StorageCapabilities:
     # budget into tier capacities. False (the default) means the hooks are
     # inert no-ops.
     tunable: bool = False
+    # update_routing()/plan_migration()/install_migration() re-route and
+    # re-place tables live. False (the default) means the verbs are inert
+    # no-ops and the auto-tuner's routing and migration legs never run.
+    migratable: bool = False
     # set_degraded(True) switches to warm-cache-only serving: device-tier
     # hits stay exact, cold misses are zero-filled (never gathered, never
     # cached), and the zero-fills' exact L2 error vs the dense gather is
@@ -231,6 +239,25 @@ class EmbeddingStorage(abc.ABC):
         `device` serves everything from device memory and never needs
         to)."""
         return False
+
+    # -- live placement hooks -----------------------------------------------
+    def update_routing(self) -> Optional[dict]:
+        """Refresh load-aware replica routing from the latest window of
+        per-replica service-cost observations. None = nothing to route
+        (the inert default — backends without replicated placement)."""
+        return None
+
+    def plan_migration(self, window: Any = None, *,
+                       threshold: Optional[float] = None) -> Any:
+        """Phase 1 of live migration (pure, helper-thread safe): re-plan
+        table placement from the live traffic window; None (the inert
+        default) when the placement is fine."""
+        return None
+
+    def install_migration(self, plan: Any) -> dict:
+        """Phase 2 of live migration (serving thread only): apply a
+        `plan_migration` result. Returns at least {'migrated': bool}."""
+        return {"migrated": False}
 
     # -- online model update hooks ------------------------------------------
     def version(self) -> int:

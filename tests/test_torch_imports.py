@@ -28,6 +28,11 @@ def test_no_jax_or_reference_imports(path):
 
 def test_walk_sees_the_package():
     assert len(FILES) > 15
+    ported = {str(f.relative_to(REPO / "src" / "repro_torch"))
+              for f in FILES[:-1]}
+    assert {"traffic/clock.py", "traffic/generators.py", "traffic/replay.py",
+            "serving/slo.py", "serving/config.py", "ps/tuning.py",
+            "checkpoint/manager.py", "examples/serve_dlrm.py"} <= ported
     sources = {f.name for f in (REPO / "src" / "repro_torch").rglob("*.cu")}
     assert {"embedding_bag.cu", "fused_lookup.cu"} <= sources
 

@@ -252,6 +252,30 @@ def test_norms_per_table_equal_the_reference():
     assert p.row_norms_sq(0)[3] == D
 
 
+def test_degraded_norms_read_only_the_zero_filled_rows():
+    """The first degraded lookup computes the norms of the rows it
+    zero-fills, not of whole tables; an update forgets only the rows it
+    wrote."""
+    j, p, tables = _pair(hot_rows=20, warm_slots=30)
+    for s in (j, p):
+        s.set_degraded(True)
+    idx = _batches(1, seed=5)[0]
+    j.lookup(idx)
+    p.lookup(idx)
+    norms = p.cold._norms_sq
+    known = sum(int((~np.isnan(n)).sum()) for n in norms.values())
+    assert 0 < known < T * R
+    assert known == p.stats()["cold_misses"]      # distinct misses, once
+    assert p.stats()["degraded_l2_sq"] == pytest.approx(
+        j.stats()["degraded_l2_sq"], rel=1e-12)
+    t = next(iter(norms))
+    rows = np.flatnonzero(~np.isnan(norms[t]))
+    p.cold.update_rows(t, rows[:1], np.ones((1, D), np.float32))
+    assert np.isnan(norms[t][rows[0]])
+    assert not np.isnan(norms[t][rows[1:]]).any()
+    assert p.cold.row_norms_sq(t, rows[:1])[0] == D
+
+
 def test_fused_needs_device_backing():
     with pytest.raises(ValueError, match="warm_backing='device'"):
         PSConfig(fused_lookup=True)

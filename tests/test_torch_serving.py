@@ -142,13 +142,99 @@ def test_device_update_through_hot_first_remap():
         st.commit_update(4)
 
 
-@pytest.mark.parametrize("kwarg,item", [("auto_tune", "item 9"),
-                                        ("slo", "item 8"),
-                                        ("controllers", "item 7")])
-def test_unported_session_options_raise(kwarg, item):
+@pytest.mark.parametrize("kwarg", [
+    pytest.param("auto_tune", id="auto_tune-item 9"),
+    pytest.param("slo", id="slo-item 8"),
+    pytest.param("controllers", id="controllers-item 7")])
+def test_unported_session_options_raise(kwarg):
+    """The controller options are ported (ROADMAP.md Queue 1 items 7-9);
+    what both packages still refuse is refused alike: a per-controller
+    kwarg together with `controllers=`, and an arbiter on a single
+    session (it arbitrates across tenants)."""
+    jmodel, params, model = _models()
+    from repro.ps.tuning import ArbiterConfig as JArbiter
+    from repro.serving import SLOConfig as JSLO
+    from repro.serving import configure as jconfigure
+    from repro_torch.ps.tuning import ArbiterConfig
+    from repro_torch.serving import SLOConfig, configure
+    if kwarg == "controllers":
+        cases = ((ServingSession, model, {"controllers": configure(
+                     arbiter=ArbiterConfig())}, "arbitrate"),
+                 (JSession, jmodel, {"controllers": jconfigure(
+                     arbiter=JArbiter())}, "arbitrate"))
+    else:
+        value = {"auto_tune": (True, True),
+                 "slo": (SLOConfig(10.0), JSLO(10.0))}[kwarg]
+        cases = ((ServingSession, model, {kwarg: value[0],
+                  "controllers": configure()}, "both"),
+                 (JSession, jmodel, {kwarg: value[1],
+                  "controllers": jconfigure()}, "both"))
+    for cls, m, kw, match in cases:
+        args = (m,) if cls is ServingSession else (m, params)
+        with pytest.raises(ValueError, match=match):
+            cls(*args, warmup=False, **kw)
+
+
+def test_controllers_ride_in_percentiles_like_jax():
+    """`auto_tune=` and `slo=` are aliases of `controllers=`; either way
+    the controllers' summaries carry the same keys as the JAX session's
+    on `device` (the tuner inert, the SLO controller live)."""
+    from repro.serving import SLOConfig as JSLO
+    from repro.serving import configure as jconfigure
+    from repro_torch.serving import SLOConfig, configure
+    jmodel, params, model = _models()
+    cfg = dict(max_batch=8, max_wait_s=0.0)
+    dense, idx = _queries(16, seed=6)
+    keys = []
+    for sess in (JSession(jmodel, params, batcher=JBatcherConfig(**cfg),
+                          controllers=jconfigure(auto_tune=True,
+                                                 slo=JSLO(50.0))),
+                 ServingSession(model, batcher=BatcherConfig(**cfg),
+                                controllers=configure(auto_tune=True,
+                                                      slo=SLOConfig(50.0))),
+                 ServingSession(model, batcher=BatcherConfig(**cfg),
+                                auto_tune=True, slo=SLOConfig(50.0))):
+        with sess:
+            assert sess.tuner is not None and not sess.tuner.enabled
+            assert sess.server.batcher.cfg.deadline_ms == 50.0
+            sess.submit_batch(dense, idx)
+            sess.drain()
+            keys.append(set(sess.percentiles()))
+    assert keys[0] == keys[1] == keys[2]
+    assert {"slo_level", "slo_breaches"} <= keys[1]
+
+
+def test_warmup_runs_every_shrink_rung():
+    """With a shrink rung armed, warmup runs the engine at every batch
+    size the ladder can pick, then leaves no trace in the counters."""
+    from repro_torch.serving import SLOConfig
     _, _, model = _models()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        ServingSession(model, **{kwarg: True})
+    sizes = []
+    forward = model.forward
+    model.forward = lambda d, i, w=None: (sizes.append(len(d)),
+                                          forward(d, i, w))[1]
+    ServingSession(model, batcher=BatcherConfig(max_batch=64),
+                   slo=SLOConfig(10.0, min_batch=12)).close()
+    assert sizes == [64, 32, 16, 12]
+
+
+def test_drain_on_a_virtual_clock_jumps_to_the_deadline():
+    """A partial batch inside its window: drain advances the virtual
+    clock to the head's deadline instead of spinning, and the latency is
+    the window plus the real service time."""
+    from repro_torch.traffic import VirtualClock
+    _, _, model = _models()
+    clock = VirtualClock()
+    with ServingSession(model, batcher=BatcherConfig(max_batch=8,
+                                                     max_wait_s=0.5),
+                        clock=clock) as sess:
+        dense, idx = _queries(3, seed=7)
+        sess.submit_batch(dense, idx)
+        assert [q.arrival_s for q in sess.server.batcher.queue] == [0.0] * 3
+        sess.drain()
+        (service,) = sess.stats.batch_latencies_s
+        assert clock() == pytest.approx(0.5 + service)
+        assert sess.stats.query_latencies_s == [clock()] * 3
 
 
 def test_host_backed_backend_raises():
@@ -261,3 +347,30 @@ def test_batcher_admission_matches_jax():
         outcomes.append((log, b.shed, dict(b.shed_reasons)))
     assert outcomes[0] == outcomes[1]
     assert outcomes[0][1] > 0
+
+
+@pytest.mark.parametrize("argv", [
+    "--storage device --hotness med_hot",
+    "--storage tiered --hotness high_hot --update-every 1 --auto-tune",
+    "--storage tiered --trace flash --slo-p99-ms 5 --min-batch 4",
+])
+def test_serve_dlrm_example_on_the_cpu(argv, capsys):
+    from repro_torch.examples import serve_dlrm
+    serve_dlrm.main(("--device cpu --tables 2 --rows 400 --pooling 4 "
+                     "--queries 48 --batch 8 --hot-rows 40 --warm-slots 40 "
+                     + argv).split())
+    out = capsys.readouterr().out
+    assert ("submitted=48" in out if "--trace" in argv
+            else "served=  48" in out)
+    if "--update-every" in argv:
+        assert " v=" in out and "updates=" in out
+
+
+@pytest.mark.parametrize("argv,item", [("--storage sharded", "item 9"),
+                                       ("--storage pool", "item 10"),
+                                       ("--tenants 2", "item 11")])
+def test_serve_dlrm_example_names_what_is_not_ported(argv, item, capsys):
+    from repro_torch.examples import serve_dlrm
+    with pytest.raises(SystemExit):
+        serve_dlrm.main(argv.split())
+    assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err
