@@ -60,19 +60,35 @@ and the script exits non-zero:
                   answer equal to the device kernel's bit for bit; one
                   degraded batch against the plain degraded pooling and
                   its L2 delta against a recompute
-  8c. update      online updates at full width, 8 tables: device and
-                  tiered sessions on one update stream (a full base, two
-                  deltas of 2 % of 3 tables' rows); after the run each
-                  batch against the plain path over its version's tables,
-                  tiered == device bit for bit, every qid's version
+  8c. update      online updates at full width, 8 tables: device, tiered
+                  and sharded (2 shards) sessions on one update stream (a
+                  full base, two deltas of 2 % of 3 tables' rows); after
+                  the run each batch against the plain path over its
+                  version's tables, tiered == sharded == device bit for
+                  bit, every qid's version
+  8d. serve_sharded  full width, 64 tables: the `device` reference, then
+                  the `sharded` backend on 4 shards (serve_tiered's tiers,
+                  contiguous placement): 2 batches of 2048, logits ==
+                  device's bit for bit, one fused launch per unit a
+                  forward; a live migration to a placement that replicates
+                  table 0 on two shards, routing updates, the 2 batches
+                  again; one batch with the shards in parallel and one
+                  serially with each shard's breakdown
+  8e. replay_tenants  two tenants (steady, flash) of 32 tables on one
+                  shared sharded backend (2 shards), max_batch 128
+                  unpadded, on a virtual clock: `fair` scheduling with the
+                  budget arbiter, then `fifo` without; every answer equal
+                  to the tenant's bag-kernel pooling, every arbiter round
+                  within the budget, each tenant's p99 and shed share
   9. kernels      one line per ported kernel (the PERF.md rows), with
                   registers, blocks per SM and fraction of the bound, and
                   the launches of each phase that drives it
 
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
 `--stop-after PHASE` ends the run after that phase (build, parity_fused,
-kernel_time, kernel_diag, replay_device, replay_tiered; a short first
-call for a new kernel); the result lines are then not printed.
+kernel_time, kernel_diag, replay_device, replay_tiered, serve_sharded,
+replay_tenants; a short first call for a new kernel); the result lines
+are then not printed.
 `--geometry-sweep` makes kernel_diag also time both kernels at each of
 seven launch geometries (bags per block x ring depth).
 """
@@ -106,10 +122,11 @@ from repro_torch.core.embedding import _pool_rows_core, gather_rows  # noqa: E40
 from repro_torch.kernels.embedding_bag import fused, kernel, ops, ref  # noqa: E402
 from repro_torch.models import DLRM  # noqa: E402
 from repro_torch.ps import PSConfig  # noqa: E402
-from repro_torch.serving import (BatcherConfig, ServingSession,  # noqa: E402
-                                 SLOConfig, UpdateConfig, configure)
+from repro_torch.serving import (ArbiterConfig, BatcherConfig,  # noqa: E402
+                                 ServingSession, SLOConfig, TenantManager,
+                                 TenantSpec, UpdateConfig, configure)
 from repro_torch.traffic import (TimedQuery, VirtualClock,  # noqa: E402
-                                 make_traffic, replay)
+                                 make_traffic, replay, replay_tenants)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM data sheet, f32 outside tensor cores
@@ -148,6 +165,24 @@ REPLAY_TIERED_SPIKE = 5             # batch times
 # 64 GB on disk), batches of 512, versions published after steps 1, 3, 5
 UPDATE_TABLES, UPDATE_BATCH, UPDATE_STEPS = 8, 512, 8
 UPDATE_PUBLISH_AFTER = (1, 3, 5)
+UPDATE_SHARDS = 2
+# serve_sharded: 64 tables (each unit copies its tables beside the
+# authoritative copy: host memory, and a tiered batch's host work a table)
+# on 4 shards, 2 batches of 2048 before and after a live migration planned
+# from a skewed window (table 0 `random`, the next 15 `one_item`). A load
+# is the mean distinct rows a query (150 for `random`, 133.7 for med_hot,
+# 1 for `one_item`), so the live imbalance of the contiguous split is 1.30
+# and a replication factor of 0.085 (a limit of 140 rows) splits table 0
+# alone over two shards
+SHARDED_TABLES, SHARDED_SHARDS, SHARDED_BATCHES = 64, 4, 2
+SKEWED_ONE_ITEM_TABLES = 15
+SHARDED_MIGRATE_THRESHOLD = 1.1
+SHARDED_REPLICATE = 0.085
+# replay_tenants: two tenants of 32 tables on one backend of 2 shards,
+# batches of 128 unpadded; steady ~400 queries at 0.5x one batch's service
+# rate, flash ~1,200 at 0.25x with a spike 4x its base for 8 batch times
+TENANT_TABLES, TENANT_SHARDS, TENANT_BATCH = 32, 2, 128
+TENANT_STEADY_QUERIES, TENANT_FLASH_QUERIES = 400, 1200
 
 
 def emit(phase: str, **fields) -> None:
@@ -642,6 +677,20 @@ def host_peak_rss_bytes() -> int:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
+def tiered_host_bytes_per_table(ps_cfg, batch: int, pooling: int, rows: int,
+                                dim: int) -> int:
+    """Host bytes a table of the tiered backend holds while serving: the
+    cold tier, the plans' two int64 [R] permutations, the warm tag store
+    (three int64 [C] arrays and the row -> slot dict), and the staged
+    payloads of prefetch_depth future batches plus the one being consumed:
+    their distinct cold rows, at most med_hot's share of unique rows per
+    batch (20.5 % of B·L)."""
+    staged_rows = int(PAPER_UNIQUE_PCT["med_hot"] / 100 * batch * pooling)
+    return (rows * dim * 4 + 2 * rows * 8
+            + ps_cfg.warm_slots * (3 * 8 + LOC_ENTRY_BYTES)
+            + (ps_cfg.prefetch_depth + 1) * staged_rows * dim * 4)
+
+
 def phase_serve_tiered(model, batches, serve_logits, deadline_s: float):
     """The same weights and batches as phase serve, on the tiered backend.
     Takes `model` apart: its tables go to the host, its MLPs are reused,
@@ -651,19 +700,8 @@ def phase_serve_tiered(model, batches, serve_logits, deadline_s: float):
     emb = dataclasses.replace(model.cfg.embedding, storage="tiered")
     T, R, L, D = emb.num_tables, emb.rows, emb.pooling, emb.dim
     B = batches[0][1].shape[0]
-    ps_cfg = PSConfig(hot_rows=R // TIER_FRACTION,
-                      warm_slots=R // TIER_FRACTION, warm_backing="device",
-                      fused_lookup=True, async_prefetch=True,
-                      prefetch_depth=2)
-    # host bytes per table while serving: the cold tier, the plans' two
-    # int64 [R] permutations, the warm tag store (three int64 [C] arrays and
-    # the row -> slot dict), and the staged payloads of prefetch_depth
-    # future batches plus the one being consumed: their distinct cold rows,
-    # at most med_hot's share of unique rows per batch (20.5 % of B·L)
-    staged_rows = int(PAPER_UNIQUE_PCT["med_hot"] / 100 * B * L)
-    per_table = (R * D * 4 + 2 * R * 8
-                 + ps_cfg.warm_slots * (3 * 8 + LOC_ENTRY_BYTES)
-                 + (ps_cfg.prefetch_depth + 1) * staged_rows * D * 4)
+    ps_cfg = tier_ps_config(R)
+    per_table = tiered_host_bytes_per_table(ps_cfg, B, L, R, D)
     avail = host_available_bytes()
     rss = {"start": host_rss_bytes()}
     fit = (avail - HOST_HEADROOM_BYTES) // per_table
@@ -1065,13 +1103,19 @@ def flash_trace(n: int, t_b: float, batch: int, emb, dense_features: int,
                        num_tables=emb.num_tables, rows=emb.rows,
                        pooling=emb.pooling, dense_features=dense_features,
                        seed=seed)
+    return (timed_queries(gen, n, emb, dense_features, pattern, seed),
+            gen.profile)
+
+
+def timed_queries(gen, n: int, emb, dense_features: int, pattern,
+                  seed: int) -> list:
+    """`n` queries with `gen`'s arrival times and indices from `pattern`."""
     arrivals = gen.arrival_times(n)
     idx = sample_indices(pattern, n, emb.num_tables, emb.pooling, seed=seed)
     dense = np.random.default_rng(seed).normal(
         size=(n, dense_features)).astype(np.float32)
-    queries = [TimedQuery(qid=i, arrival_s=float(arrivals[i]),
-                          dense=dense[i], indices=idx[i]) for i in range(n)]
-    return queries, gen.profile
+    return [TimedQuery(qid=i, arrival_s=float(arrivals[i]),
+                       dense=dense[i], indices=idx[i]) for i in range(n)]
 
 
 def calibrate_service(model, batch: int, dense, idx) -> np.ndarray:
@@ -1377,13 +1421,13 @@ def phase_replay_tiered(tiered, pattern, device_opts, src) -> dict:
 
 
 def phase_update(cfg, pattern) -> dict:
-    """Online updates at full width with the table count cut: `device` and
-    `tiered` sessions over the same weights and one update stream (one
-    full base, then two deltas touching 2 % of the rows of 3 tables),
-    batches served between versions. After the run, every batch is held
-    to the plain path over `load_version` tables of its pinned version,
-    tiered to device bit for bit, and every qid's version to the
-    schedule."""
+    """Online updates at full width with the table count cut: `device`,
+    `tiered` and `sharded` (2 shards) sessions over the same weights and
+    one update stream (one full base, then two deltas touching 2 % of the
+    rows of 3 tables), batches served between versions. After the run,
+    every batch is held to the plain path over `load_version` tables of
+    its pinned version, tiered and sharded to device bit for bit, and
+    every qid's version to the schedule."""
     emb = dataclasses.replace(cfg.embedding, num_tables=UPDATE_TABLES)
     T, R, L, D = emb.num_tables, emb.rows, emb.pooling, emb.dim
     B = UPDATE_BATCH
@@ -1393,11 +1437,14 @@ def phase_update(cfg, pattern) -> dict:
     tiered = DLRM(dataclasses.replace(cfg, embedding=dataclasses.replace(
         emb, storage="tiered")), device="cuda", tables=v0.clone(), seed=3)
     tiered.bottom, tiered.top = dev_model.bottom, dev_model.top
+    sharded = DLRM(dataclasses.replace(cfg, embedding=dataclasses.replace(
+        emb, storage="sharded")), device="cuda", tables=v0.clone(), seed=3)
+    sharded.bottom, sharded.top = dev_model.bottom, dev_model.top
     trace = sample_indices(pattern, B, T, L, seed=TRACE_SEED)
-    tiered.ebc.storage.build(PSConfig(
-        hot_rows=R // TIER_FRACTION, warm_slots=R // TIER_FRACTION,
-        warm_backing="device", fused_lookup=True, async_prefetch=True,
-        prefetch_depth=2), trace=trace)
+    tiered.ebc.storage.build(tier_ps_config(R), trace=trace)
+    sharded.ebc.storage.build(tier_ps_config(R), trace=trace,
+                              num_shards=UPDATE_SHARDS)
+    sharded_units = len(sharded.ebc.storage._units)
     root = os.path.join(ROOT, "build", "chip_smoke_updates")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -1405,7 +1452,8 @@ def phase_update(cfg, pattern) -> dict:
     # consumers attach before the base is published, so the base lands
     # through the update path too
     sessions = {}
-    for name, model in (("device", dev_model), ("tiered", tiered)):
+    for name, model in (("device", dev_model), ("tiered", tiered),
+                        ("sharded", sharded)):
         sessions[name] = ServingSession(
             model, batcher=BatcherConfig(max_batch=B, max_wait_s=0.0),
             controllers=configure(updates=UpdateConfig(
@@ -1456,13 +1504,17 @@ def phase_update(cfg, pattern) -> dict:
     for tap in taps.values():
         tap.remove()
     dev_n, tier_n = launches["device"], launches["tiered"]
+    shard_n = launches["sharded"]
     expect(failed, kernel.LAUNCHES == dev_n["bag"] + tier_n["bag"]
-           and fused.LAUNCHES == tier_n["fused"],
+           + shard_n["bag"] and fused.LAUNCHES == tier_n["fused"]
+           + shard_n["fused"],
            f"launches outside the lookups: {kernel.LAUNCHES} bag, "
            f"{fused.LAUNCHES} fused")
     expect(failed, dev_n["bag"] == dev_n["forwards"] == UPDATE_STEPS
            and tier_n["fused"] == tier_n["forwards"] == UPDATE_STEPS
-           and tier_n["bag"] > 0, f"launches in the update run: {launches}")
+           and tier_n["bag"] > 0 and shard_n["forwards"] == UPDATE_STEPS
+           and shard_n["fused"] == sharded_units * UPDATE_STEPS
+           and shard_n["bag"] > 0, f"launches in the update run: {launches}")
     pct = {name: sess.percentiles() for name, sess in sessions.items()}
     disk_used = sum(os.path.getsize(os.path.join(d, f))
                     for d, _, files in os.walk(root) for f in files)
@@ -1472,22 +1524,26 @@ def phase_update(cfg, pattern) -> dict:
         expect(failed, got == (3, 3, 1, 2),
                f"{name}: (version, applied, full, delta) = {got}")
 
-    # every batch single-version, the same version in both sessions, and
-    # tiered == device bit for bit
-    dev_batches, tier_batches = served["device"], served["tiered"]
-    expect(failed, [b[0] for b in dev_batches] == [b[0] for b in
-                                                    tier_batches],
-           "the two sessions served other batches")
+    # every batch single-version, the same version in every session, and
+    # tiered == sharded == device bit for bit
+    dev_batches = served["device"]
     by_version = collections.defaultdict(list)
-    for (qids, d_scores), (_, t_scores) in zip(dev_batches, tier_batches):
-        vs = {sessions["device"].version_of(q) for q in qids}
-        vt = {sessions["tiered"].version_of(q) for q in qids}
-        expect(failed, len(vs) == 1 and vs == vt,
-               f"batch versions: device {vs}, tiered {vt}")
-        expect(failed, bool(np.array_equal(d_scores, t_scores)),
-               f"tiered != device after an update: max diff "
-               f"{np.abs(d_scores - t_scores).max():.3e}")
-        by_version[min(vs)].append((qids, d_scores))
+    for other in ("tiered", "sharded"):
+        expect(failed, [b[0] for b in dev_batches]
+               == [b[0] for b in served[other]],
+               f"device and {other} served other batches")
+        for (qids, d_scores), (_, o_scores) in zip(dev_batches,
+                                                   served[other]):
+            vs = {sessions["device"].version_of(q) for q in qids}
+            vo = {sessions[other].version_of(q) for q in qids}
+            expect(failed, len(vs) == 1 and vs == vo,
+                   f"batch versions: device {vs}, {other} {vo}")
+            expect(failed, bool(np.array_equal(d_scores, o_scores)),
+                   f"{other} != device after an update: max diff "
+                   f"{np.abs(d_scores - o_scores).max():.3e}")
+    for qids, d_scores in dev_batches:
+        v = sessions["device"].version_of(qids[0])
+        by_version[v].append((qids, d_scores))
     # the schedule: a version published after step s is applied after the
     # first batch of step s + 1, so step s + 2 is the first served by it
     for step in range(UPDATE_STEPS):
@@ -1540,11 +1596,475 @@ def phase_update(cfg, pattern) -> dict:
         sessions={name: {k: p[k] for k in keep if k in p}
                   for name, p in pct.items()},
         plain=plain_diff, tiered_equals_device=True,
+        sharded_equals_device=True, sharded_shards=UPDATE_SHARDS,
+        sharded_units=sharded_units,
         logits_tolerance="rtol=1e-4 atol=1e-4",
         disk={"free_bytes": disk.free, "total_bytes": disk.total,
               "stream_bytes": disk_used},
         serve_s=serve_s, host_peak_rss_bytes=host_peak_rss_bytes(),
         failed=failed)
+
+
+def tier_ps_config(rows: int) -> PSConfig:
+    """serve_tiered's tiers: rows // 10 hot and warm rows a table on the
+    card, the fused kernel, async staging two batches deep."""
+    return PSConfig(hot_rows=rows // TIER_FRACTION,
+                    warm_slots=rows // TIER_FRACTION, warm_backing="device",
+                    fused_lookup=True, async_prefetch=True, prefetch_depth=2)
+
+
+def skewed_indices(batch: int, tables: int, pooling: int, rows: int,
+                   seed: int) -> np.ndarray:
+    """[batch, tables, pooling] with the `sharded_migration` bench's
+    patterns on the first tables — table 0 `random`, tables 1-15
+    `one_item` — and med_hot on the rest: a live window whose loads leave
+    the contiguous placement lopsided and table 0 heavy enough to be
+    replicated."""
+    idx = sample_indices(make_pattern("med_hot", rows, seed=0), batch,
+                         tables, pooling, seed=seed)
+    for t in range(min(tables, 1 + SKEWED_ONE_ITEM_TABLES)):
+        kind = "random" if t == 0 else "one_item"
+        idx[:, t] = make_pattern(kind, rows, seed=t).sample(
+            batch, pooling, seed=seed * 1000 + t)
+    return idx
+
+
+def shard_breakdown(storage) -> dict:
+    """Each shard's `ParameterServer.breakdown` (its units summed), ms."""
+    out = {}
+    for u in storage._units:
+        for step, s in (u.ps.breakdown or {}).items():
+            key = f"shard{u.shard}"
+            out.setdefault(key, {})
+            out[key][step] = out[key].get(step, 0.0) + s * 1e3
+    return out
+
+
+def phase_serve_sharded(cfg, pattern) -> dict:
+    """dlrm_production at full width with the table count cut, on the
+    `sharded` backend: the `device` reference first (the bag kernel), then
+    4 shards of serve_tiered's tiers on a contiguous placement, the same 2
+    batches through a session (logits equal `device`'s bit for bit, one
+    fused launch per unit a forward), a live migration to a placement
+    that replicates table 0 on two shards (`plan_migration` on a skewed
+    window, `install_migration`, routing observations folded by
+    `update_routing`), and the 2 batches again. Then one batch timed with
+    the shards in parallel and one serially, the latter with each shard's
+    `ParameterServer.breakdown`."""
+    gc.collect()                # earlier phases' collections and storages
+    emb = dataclasses.replace(cfg.embedding, num_tables=SHARDED_TABLES)
+    R, L, D = emb.rows, emb.pooling, emb.dim
+    B = 2048
+    ps_cfg = tier_ps_config(R)
+    # the tiered backend's host bytes a table, plus the authoritative copy
+    # the units are copied from, plus the second unit copy a migration
+    # builds before it tears the first down
+    per_table = tiered_host_bytes_per_table(ps_cfg, B, L, R, D) \
+        + 2 * R * D * 4
+    avail = host_available_bytes()
+    rss = {"start": host_rss_bytes()}
+    T = min(SHARDED_TABLES, int((avail - HOST_HEADROOM_BYTES) // per_table))
+    reduced = [{"num_tables": [cfg.embedding.num_tables, SHARDED_TABLES],
+                "reason": "each unit copies its tables beside the "
+                          "authoritative copy: host memory (about 880 MB "
+                          "a table with a migration in flight) and the "
+                          "host work of a tiered batch per table"}]
+    if T < SHARDED_TABLES:
+        reduced.append({"num_tables": [SHARDED_TABLES, T],
+                        "reason": f"{avail} bytes of host memory "
+                                  f"available, {per_table} needed a table"})
+    emb = dataclasses.replace(emb, num_tables=T)
+    cfg_t = dataclasses.replace(cfg, embedding=emb)
+    rng = np.random.default_rng(6)
+    batches = [(rng.normal(size=(B, cfg.dense_features)).astype(np.float32),
+                sample_indices(pattern, B, T, L, seed=60 + s))
+               for s in range(SHARDED_BATCHES)]
+    failed = []
+    torch.cuda.reset_peak_memory_stats()
+
+    def serve(model, name):
+        scores = []
+        sess = ServingSession(model, batcher=BatcherConfig(max_batch=B,
+                                                           max_wait_s=0.0))
+        sess.server.on_batch = lambda batch, s: scores.append(s.copy())
+        for dense, idx in batches:
+            sess.submit_batch(dense, idx)
+        sess.drain(timeout_s=600.0)
+        lat = np.asarray(sess.stats.batch_latencies_s) * 1e3
+        expect(failed, len(lat) == len(batches),
+               f"{name}: {len(lat)} batches served")
+        return sess, np.concatenate(scores), lat
+
+    # the `device` reference: the same tables on the card, the bag kernel
+    dev = DLRM(cfg_t, device="cuda", seed=5)
+    kernel.LAUNCHES = 0
+    sess, dev_logits, dev_lat = serve(dev, "device")
+    sess.close()
+    dev_launches = kernel.LAUNCHES
+    expect(failed, dev_launches == 1 + len(batches),
+           f"device: {dev_launches} bag launches in {1 + len(batches)} "
+           f"forwards")
+    expect(failed, bool(np.isfinite(dev_logits).all()),
+           "device: non-finite logits")
+    t1 = time.perf_counter()
+    host_tables = dev.ebc.tables.cpu()
+    dev.ebc.tables = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    to_host_s = time.perf_counter() - t1
+    sharded = DLRM(dataclasses.replace(cfg_t, embedding=dataclasses.replace(
+        emb, storage="sharded")), device="cuda", tables=host_tables, seed=5)
+    sharded.bottom, sharded.top = dev.bottom, dev.top
+    del dev, host_tables
+    st = sharded.ebc.storage
+    trace = sample_indices(pattern, B, T, L, seed=TRACE_SEED)
+    t1 = time.perf_counter()
+    st.build(ps_cfg, trace=trace, num_shards=SHARDED_SHARDS,
+             placement="contiguous", replicate_factor=SHARDED_REPLICATE)
+    build_s = time.perf_counter() - t1
+    del trace
+    rss["built"] = host_rss_bytes()
+    units_before = len(st._units)
+    expect(failed, units_before == SHARDED_SHARDS,
+           f"{units_before} units on {SHARDED_SHARDS} shards")
+
+    tap = LookupTap(st)
+    kernel.LAUNCHES = fused.LAUNCHES = 0
+    sess, logits, lat = serve(sharded, "sharded")
+    rss["served"] = host_rss_bytes()
+    before = {"batch_ms": lat.tolist(),
+              "fused_launches": fused.LAUNCHES,
+              "bag_launches": kernel.LAUNCHES,
+              "fused_per_forward": [r["fused"] for r in tap.records],
+              "units": units_before}
+    expect(failed, all(r["fused"] == units_before for r in tap.records)
+           and len(tap.records) == 1 + len(batches),
+           f"fused launches per forward {before['fused_per_forward']}, "
+           f"{units_before} units")
+    equal = bool(np.array_equal(logits, dev_logits))
+    expect(failed, equal, f"sharded != device: max diff "
+           f"{np.abs(logits - dev_logits).max():.3e}")
+    stats = st.stats()
+    expect(failed, stats["hot_hits"] + stats["warm_hits"]
+           + stats["cold_misses"] == stats["total_accesses"] > 0,
+           "merged stats break hot + warm + cold == total")
+    keys = ("total_accesses", "hot_hits", "warm_hits", "cold_misses",
+            "cache_hit_rate", "cold_gathered_rows", "prefetch_hits",
+            "prefetch_misses", "off_critical_frac", "max_queue_depth")
+    before.update(logits_equal_device=equal,
+                  stats={k: stats[k] for k in keys if k in stats})
+
+    # live migration, planned from a skewed window (med_hot's equal loads
+    # give no plan), installed between batches while the session serves
+    window = skewed_indices(B, T, L, R, seed=70)
+    t1 = time.perf_counter()
+    plan = st.plan_migration({"traffic": [window]},
+                             threshold=SHARDED_MIGRATE_THRESHOLD)
+    plan_s = time.perf_counter() - t1
+    del window
+    check(plan is not None, "serve_sharded: the skewed window gave no "
+                            "migration plan")
+    mig = plan["migration"]
+    t1 = time.perf_counter()
+    res = st.install_migration(plan)
+    install_s = time.perf_counter() - t1
+    rss["migrated"] = host_rss_bytes()
+    replicated = {int(t): list(mig.new.replicas[t])
+                  for t in mig.new.replicated_tables}
+    expect(failed, res["migrated"] and 0 in replicated
+           and len(replicated[0]) == 2,
+           f"migration {res}, replicated {replicated}")
+    units_after = len(st._units)
+    tap.records.clear()
+    kernel.LAUNCHES = fused.LAUNCHES = 0
+    scores = []
+    sess.server.on_batch = lambda batch, s: scores.append(s.copy())
+    routing = []
+    for dense, idx in batches:
+        sess.submit_batch(dense, idx)
+        sess.drain(timeout_s=600.0)
+        routing.append(st.update_routing())
+    lat2 = np.asarray(sess.stats.batch_latencies_s[-len(batches):]) * 1e3
+    logits2 = np.concatenate(scores)
+    equal2 = bool(np.array_equal(logits2, dev_logits))
+    expect(failed, equal2, f"sharded after migration != device: max diff "
+           f"{np.abs(logits2 - dev_logits).max():.3e}")
+    expect(failed, len(tap.records) == len(batches)
+           and all(r["fused"] == units_after for r in tap.records),
+           f"after migration: fused launches per forward "
+           f"{[r['fused'] for r in tap.records]}, {units_after} units")
+    expect(failed, routing[0] is not None and 0 in routing[0]["fractions"],
+           f"routing: {routing}")
+    stats = st.stats()
+    expect(failed, stats["hot_hits"] + stats["warm_hits"]
+           + stats["cold_misses"] == stats["total_accesses"],
+           "merged stats break hot + warm + cold == total after migration")
+    after = {"batch_ms": lat2.tolist(), "fused_launches": fused.LAUNCHES,
+             "bag_launches": kernel.LAUNCHES,
+             "fused_per_forward": [r["fused"] for r in tap.records],
+             "units": units_after, "logits_equal_device": equal2,
+             "routing": routing}
+    tap.remove()
+    sess.server.close()
+
+    # one batch with the shards in parallel, one serially with each
+    # shard's breakdown (the device synchronised at each step)
+    idx = batches[0][1]
+    timing = {}
+    for mode in ("parallel", "serial"):
+        pool = st._pool
+        if mode == "serial":
+            st._pool = None
+            for u in st._units:
+                u.ps.breakdown = {}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            pooled = sharded.ebc(idx)
+        torch.cuda.synchronize()
+        timing[f"{mode}_ms"] = (time.perf_counter() - t1) * 1e3
+        st._pool = pool
+    timing["breakdown_ms"] = shard_breakdown(st)
+    for u in st._units:
+        u.ps.breakdown = None
+    want = compact_bag_pooled(st._tables, idx, emb.kernel_opts())
+    expect(failed, bool(torch.equal(pooled, want)),
+           "serial fan-out != the bag kernel's pooling")
+    del pooled, want
+    peak = torch.cuda.max_memory_allocated()
+    rss["timed"] = host_rss_bytes()
+    sess.close()
+    # the collection and its storage point at each other: gc frees them
+    del sess, sharded, st, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        config="dlrm_production", backend="sharded", tables=T, rows=R,
+        dim=D, pooling=L, batch=B, shards=SHARDED_SHARDS,
+        placement="contiguous", reduced=reduced,
+        ps_config=dataclasses.asdict(ps_cfg),
+        device={"batch_ms": dev_lat.tolist(), "bag_launches": dev_launches},
+        before_migration=before,
+        migration={"window": "table 0 random, tables 1-15 one_item (the "
+                             "sharded_migration bench's patterns), the rest "
+                             "med_hot: med_hot's equal loads give no plan",
+                   "threshold": SHARDED_MIGRATE_THRESHOLD,
+                   "replicate_factor": SHARDED_REPLICATE,
+                   "describe": mig.describe(), "replicated": replicated,
+                   "moved_tables": len(mig.moved_tables),
+                   "imbalance_before": res.get("imbalance_before"),
+                   "imbalance_after": res.get("imbalance_after"),
+                   "plan_s": plan_s, "install_s": install_s},
+        after_migration=after, timing=timing,
+        peak_memory_bytes=peak, host_rss_bytes=rss,
+        host_available_bytes=avail, host_bytes_estimate=per_table * T,
+        tables_to_host_s=to_host_s, build_s=build_s, failed=failed)
+
+
+def phase_replay_tenants(cfg, pattern) -> dict:
+    """Two tenants, `steady` and `flash`, 32 tables each at full width,
+    over ONE shared sharded backend (2 shards, tiers of rows // 10), on a
+    virtual clock with max_batch 128 and unpadded batches, twice: `fair`
+    scheduling with the budget arbiter, `fifo` without. Traffic is set in
+    multiples of one tenant batch's service time measured here. Every
+    answer is held to the tenant's own bag-kernel pooling bit for bit;
+    every arbiter round to the shared budget; every tenant forward to one
+    fused launch per unit of that tenant."""
+    gc.collect()
+    R, L, D = cfg.embedding.rows, cfg.embedding.pooling, cfg.embedding.dim
+    B = TENANT_BATCH
+    ps_cfg = tier_ps_config(R)
+    names = ("steady", "flash")
+    # per table: the tiered host bytes, the tenant model's host tables and
+    # the union stack the units are copied from
+    per_table = tiered_host_bytes_per_table(ps_cfg, 2048, L, R, D) \
+        + 2 * R * D * 4
+    avail = host_available_bytes()
+    T = min(TENANT_TABLES, int((avail - HOST_HEADROOM_BYTES) // per_table
+                               // len(names)))
+    reduced = [{"num_tables": [cfg.embedding.num_tables, TENANT_TABLES],
+                "per": "tenant",
+                "reason": "host memory (the tenant tables, the union stack "
+                          "and the units' copies) and the host work of a "
+                          "tiered batch per table"}]
+    if T < TENANT_TABLES:
+        reduced.append({"num_tables": [TENANT_TABLES, T], "per": "tenant",
+                        "reason": f"{avail} bytes of host memory "
+                                  f"available, {per_table} needed a table"})
+    emb = dataclasses.replace(cfg.embedding, num_tables=T,
+                              storage="sharded")
+    models = {n: DLRM(dataclasses.replace(cfg, embedding=emb),
+                      device="cuda", seed=7 + i)
+              for i, n in enumerate(names)}
+    own_storage = {n: m.ebc.storage for n, m in models.items()}
+    rss = {"models": host_rss_bytes()}
+    trace = sample_indices(pattern, 2048, len(names) * T, L,
+                           seed=TRACE_SEED)
+    failed = []
+
+    def manager(scheduling, arbiter):
+        return TenantManager(
+            [TenantSpec(n, m) for n, m in models.items()],
+            backend="sharded",
+            batcher=BatcherConfig(max_batch=B, max_wait_s=0.002,
+                                  pad_to_max=False),
+            controllers=configure(arbiter=arbiter), scheduling=scheduling,
+            clock=VirtualClock(), ps_cfg=ps_cfg, trace=trace,
+            num_shards=TENANT_SHARDS)
+
+    built = ps_cfg.device_bytes(len(names) * T, D)
+
+    def streams(t_b: float):
+        svc_qps = B / t_b
+        spec = {
+            "steady": dict(kind="steady", n=TENANT_STEADY_QUERIES,
+                           base_qps=0.5 * svc_qps),
+            "flash": dict(kind="flash", n=TENANT_FLASH_QUERIES,
+                          base_qps=0.25 * svc_qps, spike_qps=svc_qps,
+                          spike_start_s=t_b, spike_len_s=8.0 * t_b)}
+        out = {}
+        for i, (name, s) in enumerate(spec.items()):
+            gen = make_traffic(
+                s["kind"], base_qps=s["base_qps"],
+                spike_qps=s.get("spike_qps"),
+                spike_start_s=s.get("spike_start_s", 1.0),
+                spike_len_s=s.get("spike_len_s", 1.0),
+                num_tables=T, rows=R, pooling=L,
+                dense_features=cfg.dense_features, seed=90 + i)
+            out[name] = timed_queries(gen, s["n"], emb, cfg.dense_features,
+                                      pattern, seed=90 + i)
+        return spec, out
+
+    calib = {}
+
+    def run_leg(leg: str, scheduling: str) -> dict:
+        """One leg on a manager of its own; everything that views the
+        leg's union stack is local here, so it is freed on return."""
+        arbiter = (ArbiterConfig(every_batches=8, budget_fallback_bytes=built)
+                   if scheduling == "fair" else None)
+        t1 = time.perf_counter()
+        mgr = manager(scheduling, arbiter)
+        leg_build_s = time.perf_counter() - t1
+        if arbiter is not None:
+            # the budget the arbiter splits: the bytes the tiers were built
+            # with (a round reads the card's free memory x the fraction)
+            free, _ = torch.cuda.mem_get_info()
+            arbiter = dataclasses.replace(arbiter,
+                                          budget_fraction=built / free)
+            mgr.arbiter.cfg = arbiter
+        rss[f"{leg}_built"] = host_rss_bytes()
+        shared = mgr.shared
+        if not calib:
+            # one tenant batch's service time, on the first leg's backend;
+            # the probe batches are not traffic
+            view = mgr.views["steady"]
+            probe = sample_indices(pattern, 3 * B, T, L, seed=80)
+            dense = np.zeros((B, cfg.dense_features), np.float32)
+            cal = []
+            for k in range(3):
+                t1 = time.perf_counter()
+                mgr.session("steady")._forward(
+                    dense, probe[k * B:(k + 1) * B]).cpu()
+                cal.append(time.perf_counter() - t1)
+            view.flush()
+            view.reset_stats()
+            calib.update(cal=cal, t_b=float(np.mean(cal[1:])))
+        taps, law = {}, {n: {"batches": 0, "queries": 0} for n in names}
+        for name in names:
+            tap = taps[name] = LookupTap(mgr.views[name])
+            ns = shared.tenants[name]
+
+            def hold(batch, scores, tap=tap,
+                     tables=shared._tables[ns.start:ns.stop], name=name):
+                indices, pooled = tap.last
+                want = compact_bag_pooled(tables, indices,
+                                          emb.kernel_opts())
+                expect(failed, bool(torch.equal(pooled, want)),
+                       f"{leg}: tenant {name} != its bag-kernel pooling "
+                       f"on a batch of {len(batch)}")
+                law[name]["batches"] += 1
+                law[name]["queries"] += len(batch)
+            mgr.session(name).server.on_batch = hold
+        units = {n: len(shared._tenant_units(n)) for n in names}
+        calib["spec"], qs = streams(calib["t_b"])
+        kernel.LAUNCHES = fused.LAUNCHES = 0
+        t1 = time.perf_counter()
+        reports = replay_tenants(mgr, qs, window_queries=64)
+        replay_s = time.perf_counter() - t1
+        pct = mgr.percentiles()
+        out = {"build_s": leg_build_s, "replay_s": replay_s,
+               "units": units, "tenants": {}}
+        for name in names:
+            rep, tp, tap = reports[name], pct["tenants"][name], taps[name]
+            expect(failed, all(r["fused"] == units[name]
+                               for r in tap.records) and tap.records,
+                   f"{leg}: tenant {name} fused launches per forward "
+                   f"{sorted({r['fused'] for r in tap.records})}, "
+                   f"{units[name]} units")
+            expect(failed, law[name]["queries"] == rep.served,
+                   f"{leg}: law held on {law[name]['queries']} of "
+                   f"{rep.served} answers of {name}")
+            lat = np.asarray(mgr.session(name).stats.batch_latencies_s)
+            out["tenants"][name] = {
+                "submitted": rep.submitted, "admitted": rep.admitted,
+                "served": rep.served, "shed": rep.shed,
+                "shed_frac": rep.shed_frac, "p50_ms": tp["p50_ms"],
+                "p99_ms": tp["p99_ms"], "batches": len(lat),
+                "mean_batch_ms": float(lat.mean() * 1e3),
+                "fused_per_forward": units[name],
+                "bag_launches": sum(r["bag"] for r in tap.records),
+                "law": {**law[name], "equal": True}}
+            tap.remove()
+        if mgr.arbiter is not None:
+            ev = mgr.arbiter.events
+            conserved = all(sum(e["budgets"].values()) <= e["budget_bytes"]
+                            for e in ev)
+            splits = [(sum(e["budgets"].values()), e["budget_bytes"])
+                      for e in ev]
+            expect(failed, conserved and ev,
+                   f"{leg}: arbiter rounds (split, budget) {splits}")
+            out["arbiter"] = {
+                "budget_target_bytes": built,
+                "budget_fraction": arbiter.budget_fraction,
+                "rounds": len(ev), "conserved": conserved,
+                "budget_bytes": [e["budget_bytes"] for e in ev],
+                "last_shares": mgr.arbiter.last_shares,
+                "depths": [e["depths"] for e in ev]}
+        out["fused_launches"] = fused.LAUNCHES
+        out["bag_launches"] = kernel.LAUNCHES
+        out["device_bytes"] = mgr.stats()["shared"]["device_bytes"]
+        rss[leg] = host_rss_bytes()
+        mgr.close()
+        # the manager bound each tenant model to a view of its backend:
+        # unbind them, or the closed backend's union stack stays alive
+        for name, model in models.items():
+            model.ebc.storage = own_storage[name]
+        return out
+
+    legs = {}
+    for leg, scheduling in (("fair_arbiter", "fair"), ("fifo", "fifo")):
+        t_leg = time.perf_counter()
+        legs[leg] = run_leg(leg, scheduling)
+        # the collections and their storages point at each other: gc
+        # frees the leg's union stack and units before the next leg
+        gc.collect()
+        torch.cuda.empty_cache()
+        rss[f"{leg}_freed"] = host_rss_bytes()
+        legs[leg]["seconds"] = time.perf_counter() - t_leg
+    del models
+    gc.collect()
+    fair = legs["fair_arbiter"]["tenants"]["steady"]["p99_ms"]
+    fifo = legs["fifo"]["tenants"]["steady"]["p99_ms"]
+    return dict(
+        config="dlrm_production", backend="sharded (shared)",
+        tenants={n: T for n in names}, rows=R, dim=D,
+        pooling=L, shards=TENANT_SHARDS, max_batch=B, pad_to_max=False,
+        reduced=reduced, ps_config=dataclasses.asdict(ps_cfg),
+        calibration_batch_ms=[c * 1e3 for c in calib["cal"]],
+        service_rate_qps=B / calib["t_b"], traffic=calib["spec"],
+        legs=legs, steady_p99_fair_under_half_fifo=fair < 0.5 * fifo,
+        steady_p99_ms={"fair_arbiter": fair, "fifo": fifo},
+        host_rss_bytes=rss, host_available_bytes=avail, failed=failed)
 
 
 def main() -> int:
@@ -1785,11 +2305,27 @@ def main() -> int:
     if stop("replay_tiered"):
         return 0
 
-    # 8c. update: online model updates on `device` and `tiered`
+    # 8c. update: online model updates on `device`, `tiered` and `sharded`
     t0 = time.perf_counter()
     update = phase_update(cfg, pattern)
     emit("update", **update, seconds=time.perf_counter() - t0)
     check(not update["failed"], f"update: {update['failed']}")
+
+    # 8d. serve_sharded: 4 shards, the law, a live migration
+    t0 = time.perf_counter()
+    sharded = phase_serve_sharded(cfg, pattern)
+    emit("serve_sharded", **sharded, seconds=time.perf_counter() - t0)
+    check(not sharded["failed"], f"serve_sharded: {sharded['failed']}")
+    if stop("serve_sharded"):
+        return 0
+
+    # 8e. replay_tenants: two tenants on one shared sharded backend
+    t0 = time.perf_counter()
+    tenants = phase_replay_tenants(cfg, pattern)
+    emit("replay_tenants", **tenants, seconds=time.perf_counter() - t0)
+    check(not tenants["failed"], f"replay_tenants: {tenants['failed']}")
+    if stop("replay_tenants"):
+        return 0
 
     # 9. kernels
     def row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -1816,7 +2352,13 @@ def main() -> int:
             launches_replay_tiered_degraded=replay_tier[
                 "bag_launches_in_degraded"],
             launches_update_device=update["launches"]["device"]["bag"],
-            launches_update_tiered=update["launches"]["tiered"]["bag"]),
+            launches_update_tiered=update["launches"]["tiered"]["bag"],
+            launches_update_sharded=update["launches"]["sharded"]["bag"],
+            launches_sharded=sharded["before_migration"]["bag_launches"],
+            launches_sharded_migrated=sharded["after_migration"][
+                "bag_launches"],
+            launches_tenants={leg: out["bag_launches"] for leg, out in
+                              tenants["legs"].items()}),
         row("fused_warm_lookup", csrc + "fused_lookup.cu",
             "src/repro/kernels/embedding_bag/fused.py:266",
             fields["fused_launches"],
@@ -1826,7 +2368,13 @@ def main() -> int:
             pool_pass_ms=timed["pool_pass_ms"],
             list_pass_ms=timed["list_pass_ms"],
             launches_replay_tiered=replay_tier["fused_launches"],
-            launches_update=update["launches"]["tiered"]["fused"])]}),
+            launches_update=update["launches"]["tiered"]["fused"],
+            launches_update_sharded=update["launches"]["sharded"]["fused"],
+            launches_sharded=sharded["before_migration"]["fused_launches"],
+            launches_sharded_migrated=sharded["after_migration"][
+                "fused_launches"],
+            launches_tenants={leg: out["fused_launches"] for leg, out in
+                              tenants["legs"].items()})]}),
           flush=True)
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)

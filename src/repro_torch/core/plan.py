@@ -6,8 +6,10 @@ and the serving controllers use: `TierCapacityPlan`,
 `plan_tier_capacities`, `AdmissionPlan` and `plan_admission` (numpy,
 copied), and `estimate_device_budget`, which reads the card's free memory
 from `torch.cuda.mem_get_info` where the TPU path read the runtime's
-memory stats. The embedding-stage and shard planners come with the layers
-they size (ROADMAP.md Queue 1).
+memory stats; and the shard planners `plan_shard_placement` and
+`plan_shard_migration`, thin delegations into `storage.placement`. The
+embedding-stage planner comes with the `embedding_stage` sweep (ROADMAP.md
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -182,3 +184,37 @@ def plan_admission(target_p99_ms: float, batch_service_ms: float,
         batches_in_budget=batches,
         sustainable_qps=float(max_batch / batch_service_ms * 1e3),
         notes=tuple(notes))
+
+
+# ---------------------------------------------------------------------------
+# Table-to-shard placement planning (frequency-aware load balancing)
+# ---------------------------------------------------------------------------
+
+def plan_shard_placement(trace: np.ndarray, num_shards: int, **kwargs):
+    """Planner-API entry for frequency-aware table-to-shard balancing:
+    per-table load = unique-access rate x row bytes, assigned by greedy LPT
+    with an optional hot-table replication escape hatch. Returns a
+    `repro_torch.storage.placement.ShardPlacement` for
+    `ShardedStorage.build(placement=...)`; see that module for the model.
+
+    Thin delegation (lazy import: `repro_torch.storage` imports back into
+    core) so every planning entry point — tier capacities, admission,
+    shard placement — lives on one surface.
+    """
+    from repro_torch.storage.placement import plan_shard_placement as _plan
+    return _plan(trace, num_shards, **kwargs)
+
+
+def plan_shard_migration(old_placement, trace: np.ndarray, **kwargs):
+    """Planner-API entry for OFFLINE migration what-if analysis: re-cost a
+    serving `ShardPlacement` under a fresh traffic trace and return a
+    `repro_torch.storage.placement.MigrationPlan` (which tables move,
+    imbalance before/after) — or None when the placement still holds up.
+    The live path is `ShardedStorage.plan_migration()`/
+    `install_migration()` (driven by `ServingSession(auto_tune=...)`);
+    this entry lets capacity planning ask the same question from a
+    recorded trace without a built backend. Same thin-delegation
+    rationale as `plan_shard_placement`.
+    """
+    from repro_torch.storage.placement import plan_migration as _plan
+    return _plan(old_placement, trace, **kwargs)

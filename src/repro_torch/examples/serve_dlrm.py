@@ -6,8 +6,15 @@ port's counterpart of the JAX package's `examples/serve_dlrm.py`.
 
 The storage backend comes from the `repro_torch.storage` registry:
 `device` (tables in device memory, pooled by the CUDA embedding-bag
-kernel) or `tiered` (hot block and warm cache on the device, cold tier on
-the host, hits pooled by the fused lookup kernel).
+kernel), `tiered` (hot block and warm cache on the device, cold tier on
+the host, hits pooled by the fused lookup kernel) or `sharded` (the
+tiered store split table-wise over `--shards` shard workers, one fused
+launch a unit; `--placement balanced` plans the split from the trace and
+`--migrate-every N` re-plans it live).
+
+`--tenants N` serves N DLRMs over ONE shared sharded backend
+(`TenantManager` with the fair-share arbiter), their traffic merged on
+one virtual clock by `replay_tenants`.
 
 `--update-every N` arms zero-downtime online model updates: a
 trainer-side `ModelUpdateStream` publishes a delta touching
@@ -27,6 +34,9 @@ ladder). The run ends with a shed/degraded summary.
         --trace flash --slo-p99-ms 20 --min-batch 8
     python -m repro_torch.examples.serve_dlrm --storage tiered \\
         --update-every 4 --update-rows 0.02
+    python -m repro_torch.examples.serve_dlrm --storage sharded --shards 4 \\
+        --placement balanced --migrate-every 8
+    python -m repro_torch.examples.serve_dlrm --tenants 2
     python -m repro_torch.examples.serve_dlrm --device cpu --rows 5000 \\
         --queries 64 --batch 16 --hotness med_hot
 
@@ -47,16 +57,16 @@ from repro_torch.checkpoint import ModelUpdateStream
 from repro_torch.core.embedding import EmbeddingStageConfig
 from repro_torch.models import DLRM, DLRMConfig
 from repro_torch.ps import AutoTuneConfig, PSConfig
-from repro_torch.serving import (BatcherConfig, ServingSession, SLOConfig,
-                                 UpdateConfig, configure)
-from repro_torch.traffic import VirtualClock, make_traffic, replay
+from repro_torch.serving import (ArbiterConfig, BatcherConfig,
+                                 ServingSession, SLOConfig, TenantManager,
+                                 TenantSpec, UpdateConfig, configure)
+from repro_torch.traffic import (VirtualClock, make_traffic, replay,
+                                 replay_tenants)
 
 HOTNESS = ("one_item", "high_hot", "med_hot", "low_hot", "random")
 DIM = 128
-# backends and modes of the JAX package that the port has not reached
-NOT_PORTED = {"sharded": "ROADMAP.md Queue 1 item 9",
-              "pool": "ROADMAP.md Queue 1 item 10",
-              "tenants": "ROADMAP.md Queue 1 item 11"}
+# the backend of the JAX package that the port has not reached
+NOT_PORTED = {"pool": "ROADMAP.md Queue 1 item 10"}
 
 
 def parse_args(argv=None):
@@ -73,18 +83,35 @@ def parse_args(argv=None):
                     choices=("device", "tiered", "sharded", "pool"),
                     default="device",
                     help="storage backend (repro_torch.storage registry)")
+    ap.add_argument("--shards", type=int, default=2,
+                    help="sharded: table-wise shard workers")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="pool: worker processes (not ported yet)")
+    ap.add_argument("--placement", choices=("contiguous", "balanced"),
+                    default="contiguous",
+                    help="sharded: table-to-shard assignment — contiguous "
+                         "split or frequency-aware LPT balancing from the "
+                         "trace (prints the shard load table)")
     ap.add_argument("--hot-rows", type=int, default=2500,
-                    help="tiered: device-pinned rows per table")
+                    help="tiered/sharded: device-pinned rows per table")
     ap.add_argument("--warm-slots", type=int, default=2500,
-                    help="tiered: warm-cache slots per table")
+                    help="tiered/sharded: warm-cache slots per table")
     ap.add_argument("--refresh-every", type=int, default=8,
-                    help="tiered: re-pin the hot set every N batches")
+                    help="tiered/sharded: re-pin the hot set every N "
+                         "batches")
     ap.add_argument("--async", dest="async_mode", action="store_true",
-                    help="tiered: threaded prefetch + helper-thread hot-set "
-                         "re-planning")
+                    help="tiered/sharded: threaded prefetch + helper-thread "
+                         "hot-set re-planning")
     ap.add_argument("--auto-tune", action="store_true",
-                    help="runtime queue-depth auto-tuning (tiered; inert "
-                         "on device)")
+                    help="runtime queue-depth auto-tuning (tiered/sharded; "
+                         "inert on device)")
+    ap.add_argument("--migrate-every", type=int, default=0,
+                    help="sharded: re-plan table placement from the live "
+                         "traffic window every N batches and swap it in "
+                         "past --migrate-threshold (0 = off)")
+    ap.add_argument("--migrate-threshold", type=float, default=1.25,
+                    help="live imbalance ratio that justifies a "
+                         "mid-serving placement migration")
     ap.add_argument("--hotness", choices=HOTNESS + ("all",), default="all",
                     help="run one hotness level or the sweep")
     ap.add_argument("--update-every", type=int, default=0,
@@ -93,7 +120,9 @@ def parse_args(argv=None):
     ap.add_argument("--update-rows", type=float, default=0.01,
                     help="fraction of one table's rows each delta touches")
     ap.add_argument("--tenants", type=int, default=0,
-                    help="multi-tenant serving (not ported yet)")
+                    help="serve N tenant DLRMs over ONE shared sharded "
+                         "backend (TenantManager + fair-share arbiter; 0 = "
+                         "single-tenant modes)")
     ap.add_argument("--trace", choices=("steady", "diurnal", "flash",
                                         "shift"), default=None,
                     help="replay a timestamped trace on a virtual clock "
@@ -108,35 +137,45 @@ def parse_args(argv=None):
                     help="trace mode: offered base rate (0 = 0.5x the "
                          "measured service rate)")
     args = ap.parse_args(argv)
-    if args.storage in NOT_PORTED:
-        ap.error(f"--storage {args.storage} is not ported yet: "
-                 f"{NOT_PORTED[args.storage]}")
-    if args.tenants:
-        ap.error(f"--tenants is not ported yet: {NOT_PORTED['tenants']}")
-    if args.slo_p99_ms and not args.trace:
+    if args.storage in NOT_PORTED or args.workers:
+        ap.error(f"--storage pool and --workers are not ported yet: "
+                 f"{NOT_PORTED['pool']}")
+    if args.slo_p99_ms and not (args.trace or args.tenants):
         ap.error("--slo-p99-ms needs --trace: the SLO controller watches "
                  "windowed p99 over a timestamped replay")
     return args
 
 
 def build_model(args, hotness: str):
-    """A DLRM with random weights on `--device`, its tiered storage built
-    from a trace of another seed's queries."""
+    """A DLRM with random weights on `--device`, its tiered or sharded
+    storage built from a trace of another seed's queries."""
     cfg = DLRMConfig(embedding=EmbeddingStageConfig(
         num_tables=args.tables, rows=args.rows, dim=DIM,
         pooling=args.pooling, storage=args.storage))
     model = DLRM(cfg, device=args.device, seed=0)
-    if not model.ebc.storage.capabilities().device_resident:
+    caps = model.ebc.storage.capabilities()
+    if not caps.device_resident:
         trace = make_traffic("steady", base_qps=1.0, num_tables=args.tables,
                              rows=args.rows, pooling=args.pooling,
                              hotness=hotness, seed=1).queries(2 * args.batch)
+        kw = {}
+        if caps.shardable:
+            kw = dict(num_shards=args.shards, placement=args.placement)
         model.ebc.storage.build(
-            PSConfig(hot_rows=args.hot_rows, warm_slots=args.warm_slots,
-                     prefetch_depth=2, window_batches=16,
-                     async_prefetch=args.async_mode, warm_backing="device",
-                     fused_lookup=True),
-            trace=np.stack([q.indices for q in trace]))
+            ps_config(args), trace=np.stack([q.indices for q in trace]),
+            **kw)
+        placement = getattr(model.ebc.storage, "placement", None)
+        if placement is not None:
+            # the planner's shard load table (estimated from the trace)
+            print(placement.describe(), flush=True)
     return model
+
+
+def ps_config(args) -> PSConfig:
+    return PSConfig(hot_rows=args.hot_rows, warm_slots=args.warm_slots,
+                    prefetch_depth=2, window_batches=16,
+                    async_prefetch=args.async_mode, warm_backing="device",
+                    fused_lookup=True)
 
 
 def _sync(model) -> None:
@@ -154,7 +193,11 @@ def run_session(args, hotness: str) -> dict:
                            hotness=hotness, seed=0).queries(args.queries)
     dense = np.stack([q.dense for q in queries])
     idx = np.stack([q.indices for q in queries])
-    auto_tune = AutoTuneConfig() if args.auto_tune else None
+    auto_tune = (AutoTuneConfig(
+        depth_every_batches=8 if args.auto_tune else 0,
+        migrate_every_batches=args.migrate_every,
+        migrate_threshold=args.migrate_threshold)
+        if (args.auto_tune or args.migrate_every) else None)
     pub = upd_dir = updates = None
     if args.update_every:
         # trainer side: a publisher stream over a scratch version root;
@@ -306,8 +349,88 @@ def run_trace(args) -> list[str]:
     return lines
 
 
+def run_tenants(args) -> list[str]:
+    """Multi-tenant serving: `--tenants` DLRMs over ONE shared sharded
+    backend. Each tenant gets its own steady stream; `replay_tenants`
+    merges them on one virtual clock through the manager's fair
+    scheduler, and the arbiter re-splits the device budget and prefetch
+    depth from live per-tenant load. Returns one line per tenant and the
+    shared-backend summary."""
+    specs = []
+    for t in range(args.tenants):
+        # same rows/dim (the shared axis), per-tenant pooling
+        cfg = DLRMConfig(embedding=EmbeddingStageConfig(
+            num_tables=args.tables, rows=args.rows, dim=DIM,
+            pooling=max(2, args.pooling - 2 * t), storage="sharded"))
+        specs.append(TenantSpec(name=f"t{t}", model=DLRM(
+            cfg, device=args.device, seed=t)))
+    slo = (SLOConfig(target_p99_ms=args.slo_p99_ms,
+                     min_batch=max(2, args.batch // 8))
+           if args.slo_p99_ms else None)
+    mgr = TenantManager(
+        specs, backend="sharded",
+        batcher=BatcherConfig(max_batch=args.batch, max_wait_s=0.002),
+        sla_ms=500, refresh_every_batches=args.refresh_every,
+        controllers=configure(slo=slo, arbiter=ArbiterConfig(
+            every_batches=8, budget_fallback_bytes=64 << 20)),
+        scheduling="fair", clock=VirtualClock(), ps_cfg=ps_config(args),
+        num_shards=args.shards)
+    try:
+        # calibrate offered load to the measured shared service rate; the
+        # probe batches are not traffic
+        first = mgr.session(mgr.names[0])
+        cfg = specs[0].model.cfg
+        dense = np.zeros((args.batch, cfg.dense_features), np.float32)
+        idx = np.zeros((args.batch, args.tables, cfg.embedding.pooling),
+                       np.int32)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            first._forward(dense, idx).cpu()
+        t_b = (time.perf_counter() - t0) / 3
+        first.storage.flush()
+        first.storage.reset_stats()
+        svc_qps = args.batch / t_b
+        per_tenant = (args.base_qps or 0.5 * svc_qps) / args.tenants
+        streams = {
+            spec.name: make_traffic(
+                "steady", base_qps=per_tenant,
+                dense_features=spec.model.cfg.dense_features,
+                num_tables=args.tables, rows=args.rows,
+                pooling=spec.model.cfg.embedding.pooling,
+                seed=t).queries(args.queries // args.tenants)
+            for t, spec in enumerate(specs)}
+        reports = replay_tenants(mgr, streams)
+        pct, st = mgr.percentiles(), mgr.stats()
+    finally:
+        mgr.close()
+    lines = [f"tenants={args.tenants} backend=sharded "
+             f"per_tenant_qps={per_tenant:.0f} "
+             f"({args.tenants * per_tenant / svc_qps:.2f}x service rate)"]
+    per = pct["tenants"] if "tenants" in pct else {mgr.names[0]: pct}
+    for name, tp in per.items():
+        rep = reports[name]
+        lines.append(f"  {name}: submitted={rep.submitted} "
+                     f"served={rep.served} shed={rep.shed} "
+                     f"p50={tp['p50_ms']:.1f}ms p99={tp['p99_ms']:.1f}ms")
+    shared = st["shared"]
+    line = (f"shared: served={sum(tp['served'] for tp in per.values())} "
+            f"tenants={shared['num_tenants']} "
+            f"device_bytes={shared['device_bytes']}")
+    if mgr.arbiter is not None and mgr.arbiter.last_shares:
+        shares = " ".join(f"{n}={s:.2f}"
+                          for n, s in mgr.arbiter.last_shares.items())
+        line += (f" arbiter_rounds={len(mgr.arbiter.events)} "
+                 f"shares[{shares}]")
+    lines.append(line)
+    return lines
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
+    if args.tenants:
+        for line in run_tenants(args):
+            print(line, flush=True)
+        return
     if args.trace:
         for line in run_trace(args):
             print(line, flush=True)

@@ -260,6 +260,11 @@ __global__ void __launch_bounds__(kListThreads)
   }
 }
 
+// The instantiation launched last, for *_last_launch_info. Diagnostic only:
+// every launch writes it, unsynchronised, so it is read only after launches
+// made from one thread (chip_smoke.py's parity, parity_fused and
+// kernel_diag); launches from the sharded backend's shard threads race on
+// it harmlessly and nothing reads it then.
 bag_common::LaunchRecord g_last;
 
 }  // namespace

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -49,8 +50,11 @@ PAD = -2           # slot-map sentinel: padded dummy bag — zero, no emission
 COMPLETION_OPTS = kernel.EmbeddingBagOpts()
 
 #: Launches of the gather-and-pool kernel since the count was last set to 0.
-#: Only `pool_tables` adds to it, once per launch.
+#: Only `pool_tables` adds to it, once per launch, through `_count_launch`
+#: (under a lock: the sharded backend's shard threads launch at once).
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+_LOAD_LOCK = threading.Lock()
 
 SOURCES = (kernel.CSRC / "fused_lookup.cu",)
 HEADERS = (kernel.CSRC / "bag_common.cuh",)
@@ -85,9 +89,17 @@ def build() -> dict:
     return kernel.build_library("fused_lookup", SOURCES, HEADERS)
 
 
+def _count_launch() -> None:
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+
+
 def _library():
     global _lib
-    if _lib is None:
+    with _LOAD_LOCK:
+        if _lib is not None:
+            return _lib
         lib = ctypes.CDLL(build()["path"])
         ll, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
         lib.fused_lookup_pool.argtypes = [
@@ -102,7 +114,7 @@ def _library():
         lib.fused_lookup_error_string.argtypes = [i32]
         lib.fused_lookup_error_string.restype = ctypes.c_char_p
         _lib = lib
-    return _lib
+        return _lib
 
 
 def last_launch_info() -> dict:
@@ -152,7 +164,6 @@ def pool_tables(cache: torch.Tensor, slots: torch.Tensor,
     Returns (pooled [B, T, D] raw sums, bag_miss [T, B] MISS counts per
     bag, bitmap [T, ceil(R/32)] of the missing rows) on the device; the
     last two are what `list_tables` turns into the miss lists."""
-    global LAUNCHES
     opts.validate()
     if not cache.is_cuda:
         raise ValueError("the fused lookup kernel needs tensors on a CUDA "
@@ -188,7 +199,7 @@ def pool_tables(cache: torch.Tensor, slots: torch.Tensor,
     if err:
         raise RuntimeError("fused lookup kernel launch failed: "
                            + lib.fused_lookup_error_string(err).decode())
-    LAUNCHES += 1
+    _count_launch()
     return pooled, bag_miss, bitmap
 
 

@@ -33,14 +33,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 import torch
 
 #: Launches of the CUDA kernel since the count was last set to 0. Only
-#: `embedding_bag_cuda` adds to it, once per launch.
+#: `embedding_bag_cuda` adds to it, once per launch, through
+#: `_count_launch`: the sharded backend's shard threads launch at once, and
+#: `+=` on a module global is a read-modify-write that could lose a count.
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+# the first launch builds and loads the library: one thread does it
+_LOAD_LOCK = threading.Lock()
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "embedding_bag.cu",)
@@ -151,9 +157,17 @@ def build() -> dict:
     return build_library("embedding_bag", SOURCES, HEADERS)
 
 
+def _count_launch() -> None:
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+
+
 def _library():
     global _lib
-    if _lib is None:
+    with _LOAD_LOCK:
+        if _lib is not None:
+            return _lib
         lib = ctypes.CDLL(build()["path"])
         ll, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
         lib.embedding_bag_launch.argtypes = [
@@ -165,7 +179,7 @@ def _library():
         lib.embedding_bag_error_string.argtypes = [i32]
         lib.embedding_bag_error_string.restype = ctypes.c_char_p
         _lib = lib
-    return _lib
+        return _lib
 
 
 LAUNCH_INFO_KEYS = ("registers", "blocks_per_sm", "local_bytes",
@@ -207,7 +221,6 @@ def embedding_bag_cuda(tables: torch.Tensor, indices: torch.Tensor,
     weights: [B, T, L] float32, contiguous, or None
     returns: [B, T, D] in the tables' dtype
     """
-    global LAUNCHES
     opts.validate()
     if opts.mode not in ("sum", "mean"):
         raise ValueError(f"unknown mode {opts.mode!r}")
@@ -255,5 +268,5 @@ def embedding_bag_cuda(tables: torch.Tensor, indices: torch.Tensor,
     if err:
         raise RuntimeError("embedding_bag kernel launch failed: "
                            + lib.embedding_bag_error_string(err).decode())
-    LAUNCHES += 1
+    _count_launch()
     return out

@@ -22,8 +22,8 @@ purely through `EmbeddingStorage` protocol verbs so any tunable backend
                    (`storage.retune_capacities`).
 
 Two more controllers make the PLACEMENT itself live, for backends that
-report the `migratable` capability (a sharded backend, ROADMAP.md Queue 1
-item 9; `device` and `tiered` stay inert):
+report the `migratable` capability (the `sharded` backend; `device` and
+`tiered` stay inert):
 
   replica routing — every `route_every_batches` executed batches
                    `storage.update_routing()` folds the window's observed
@@ -42,8 +42,7 @@ item 9; `device` and `tiered` stay inert):
 `ServingSession(auto_tune=AutoTuneConfig(...))` drives all four.
 
 Under multi-tenant serving one more controller sits ABOVE the per-tenant
-sessions: the `BudgetArbiter` (driven by a tenant manager, ROADMAP.md
-Queue 1 item 11; here already so `configure(arbiter=...)` takes it). It
+sessions: the `BudgetArbiter` (driven by `serving.TenantManager`). It
 generalizes the capacity leg across tenants sharing ONE backend: every
 `every_batches` executed batches it turns each tenant's live access-count
 delta into a demand share (floored at `min_share` so an idle tenant is

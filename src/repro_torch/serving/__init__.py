@@ -13,9 +13,10 @@ once is a ValueError. The SLO outer loop (`SLOConfig`/`SLOController`)
 escalates widen -> batch-shrink (`min_batch`) -> degraded, with admission
 shedding via `BatcherConfig.max_queue`/`deadline_ms` + `QueryShedError`.
 
-The multi-tenant manager of `repro.serving` (`TenantManager`,
-`TenantSpec`) comes in a later slice (ROADMAP.md Queue 1 item 11);
-`ArbiterConfig`/`BudgetArbiter` are here already for `configure`.
+`TenantManager` serves N models (`TenantSpec`s) from ONE shared sharded
+backend: one standard session per tenant over its `TenantStorage` view,
+`fair`/`fifo` scheduling, and a `BudgetArbiter` (`ArbiterConfig`) that
+re-splits the shared device budget across tenants.
 """
 from repro_torch.ps.tuning import (ArbiterConfig, AutoTuneConfig,
                                    BudgetArbiter, QueueDepthController)
@@ -26,9 +27,11 @@ from repro_torch.serving.server import (Batcher, BatcherConfig,
                                         QueryShedError, ServeStats)
 from repro_torch.serving.session import ServingSession
 from repro_torch.serving.slo import SLOConfig, SLOController, windowed_p99_ms
+from repro_torch.serving.tenants import TenantManager, TenantSpec
 
 __all__ = ["Batcher", "BatcherConfig", "InferenceServer", "Query",
            "QueryShedError", "ServeStats", "ServingSession",
            "AutoTuneConfig", "QueueDepthController", "SLOConfig",
            "SLOController", "windowed_p99_ms", "ServingControllers",
-           "UpdateConfig", "configure", "ArbiterConfig", "BudgetArbiter"]
+           "UpdateConfig", "configure", "ArbiterConfig", "BudgetArbiter",
+           "TenantManager", "TenantSpec"]

@@ -14,9 +14,8 @@ The per-controller kwargs (`ServingSession(auto_tune=..., slo=...)`)
 remain as thin aliases — they build the same `ServingControllers` under
 the hood, and passing both surfaces at once is a `ValueError`, not a
 silent precedence rule. The `arbiter` field is meaningful only for a
-multi-tenant manager (it arbitrates ACROSS tenants; ROADMAP.md Queue 1
-item 11); a single-model session rejects it for the same fail-fast
-reason.
+multi-tenant manager (it arbitrates ACROSS tenants; `TenantManager`); a
+single-model session rejects it for the same fail-fast reason.
 
 A port of `repro/serving/config.py`.
 """

@@ -30,7 +30,8 @@ Typical use:
         print(s.percentiles())
 
 Only the multi-tenant arbiter is refused (`controllers=` with an
-`arbiter` is a `ValueError`: a single session has nothing to arbitrate).
+`arbiter` is a `ValueError`: a single session has nothing to arbitrate;
+`TenantManager` takes it).
 """
 from __future__ import annotations
 
@@ -70,8 +71,7 @@ class ServingSession:
             raise ValueError(
                 "the arbiter re-splits shared capacity ACROSS tenants; a "
                 "single-model ServingSession has nothing to arbitrate — "
-                "it comes with the tenant manager (ROADMAP.md Queue 1 "
-                "item 11)")
+                "pass it to TenantManager(controllers=...) instead")
         auto_tune, slo = spec.auto_tune, spec.slo
         self.model = model
         self.storage = model.ebc.storage

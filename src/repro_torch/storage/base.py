@@ -29,9 +29,9 @@ worth calling — and a caller who requires a capability fails fast with
 `require_capability` instead of silently losing overlap.
 
 The live-placement verbs are called by the SLO controller and the
-auto-tuner on every backend; only a sharded backend (ROADMAP.md Queue 1
-item 9, with its `shardable` flag) would report `migratable` and give them
-work. `device` and `tiered` keep the inert defaults.
+auto-tuner on every backend; only the `sharded` backend (`shardable`)
+reports `migratable` and gives them work. `device` and `tiered` keep the
+inert defaults.
 
 Backends register under a string key in `repro_torch.storage.registry`;
 `EmbeddingStageConfig.storage` is a thin lookup into that registry.
@@ -66,6 +66,8 @@ class StorageCapabilities:
     async_prefetch: bool = False
     # plan_refresh()/install_refresh() re-pin a hot set from live traffic
     refreshable: bool = False
+    # storage is (or can be) partitioned across shard workers
+    shardable: bool = False
     # runtime auto-tuning hooks are live: set_prefetch_depth() moves the
     # bounded prefetch buffer, retune_capacities() re-splits a device-byte
     # budget into tier capacities. False (the default) means the hooks are

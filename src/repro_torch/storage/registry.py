@@ -1,10 +1,10 @@
 """String-keyed backend registry for `EmbeddingStorage` implementations.
 
 `EmbeddingStageConfig.storage` resolves here: the in-tree backends
-(`device`, `tiered`) register at import of `repro_torch.storage`, and
-out-of-tree backends can `@register("mine")` their own class — the whole
-stack (EmbeddingBagCollection, ServingSession) picks them up by name with
-no further wiring.
+(`device`, `tiered`, `sharded`) register at import of
+`repro_torch.storage`, and out-of-tree backends can `@register("mine")`
+their own class — the whole stack (EmbeddingBagCollection,
+ServingSession) picks them up by name with no further wiring.
 
 Misuse is loud by design (tested in tests/test_torch_core.py and
 tests/test_torch_serving.py):

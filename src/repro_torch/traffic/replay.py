@@ -19,9 +19,8 @@ After every poll a `ReplaySnapshot` lands on the timeline — windowed p99,
 queue length, shed/degraded state against trace time — which is what the
 overload tests and `chip_smoke.py`'s replay phases read.
 
-A port of `repro/traffic/replay.py`'s single-session driver; the
-multi-tenant `replay_tenants` comes with `serving/tenants.py` (ROADMAP.md
-Queue 1 item 11).
+`replay_tenants()` lifts the same event loop to a `TenantManager`'s N
+queues on its one clock. A port of `repro/traffic/replay.py`.
 """
 from __future__ import annotations
 
@@ -142,3 +141,109 @@ def replay(session, queries, *, window_queries: int = 256,
     report.served = session.stats.served
     report.percentiles = session.percentiles()
     return report
+
+
+def replay_tenants(manager, streams: dict, *, window_queries: int = 256,
+                   drain: bool = True) -> dict:
+    """Drive a `serving.TenantManager` through per-tenant query streams
+    merged on its ONE virtual clock; returns `{tenant: ReplayReport}`.
+
+    Same event-loop law as `replay()`, lifted to N queues: before each
+    (globally earliest) arrival the manager serves everything it would
+    have by then — any full queue executes immediately, else the earliest
+    batching-window deadline across tenants flushes first — and each
+    executed batch advances the shared clock by its real service cost, so
+    tenants genuinely contend for serving time. Which tenant a given poll
+    executes is the manager's scheduling policy ('fair'/'fifo'), which is
+    exactly what the noisy-neighbor benchmark legs compare.
+    """
+    clock = manager.clock
+    if clock is None or not hasattr(clock, "advance"):
+        raise TypeError(
+            "replay_tenants() needs a manager on trace time — construct "
+            "it with TenantManager(..., "
+            "clock=repro_torch.traffic.VirtualClock())")
+    unknown = set(streams) - set(manager.names)
+    if unknown:
+        raise KeyError(f"streams for unattached tenants: {sorted(unknown)}")
+    reports = {n: ReplayReport() for n in streams}
+    iters = {n: iter(s) for n, s in streams.items()}
+    heads = {n: next(it, None) for n, it in iters.items()}
+
+    def queues():
+        return {n: manager.session(n).server.batcher
+                for n in manager.names
+                if manager.session(n).server.batcher.queue}
+
+    def snap(name):
+        sess = manager.session(name)
+        stats = sess.stats
+        reports.setdefault(name, ReplayReport()).timeline.append(
+            ReplaySnapshot(
+                t_s=clock.now,
+                served=stats.served,
+                shed=stats.shed_queries,
+                queue_len=len(sess.server.batcher.queue),
+                windowed_p99_ms=windowed_p99_ms(stats.query_latencies_s,
+                                                window_queries),
+                slo_level=0 if sess.slo is None else sess.slo.level,
+                degraded=sess.storage.degraded()))
+
+    def poll_and_snap(force=False):
+        served = manager.poll(force=force)
+        if served and manager.last_polled is not None:
+            snap(manager.last_polled)
+        return served
+
+    while any(h is not None for h in heads.values()):
+        name = min((n for n in heads if heads[n] is not None),
+                   key=lambda n: heads[n].arrival_s)
+        q = heads[name]
+        arrival = q.arrival_s
+        while clock.now < arrival:
+            pending = queues()
+            if not pending:
+                break
+            if any(len(b.queue) >= b.cfg.max_batch
+                   for b in pending.values()):
+                poll_and_snap()
+                continue
+            d = min(b.queue[0].arrival_s + b.cfg.max_wait_s
+                    for b in pending.values())
+            if d >= arrival:
+                break               # every window still open at arrival
+            if d > clock.now:
+                clock.advance(d - clock.now)
+            if not poll_and_snap():
+                break               # guard: no progress despite a jump
+        if arrival > clock.now:
+            clock.advance(arrival - clock.now)
+        reports[name].submitted += 1
+        try:
+            manager.submit(name, Query(qid=q.qid, dense=q.dense,
+                                       indices=q.indices,
+                                       arrival_s=arrival))
+            reports[name].admitted += 1
+        except QueryShedError:
+            reports[name].shed += 1
+        heads[name] = next(iters[name], None)
+
+    if drain:
+        while True:
+            pending = queues()
+            if not pending:
+                break
+            if not any(len(b.queue) >= b.cfg.max_batch
+                       for b in pending.values()):
+                d = min(b.queue[0].arrival_s + b.cfg.max_wait_s
+                        for b in pending.values())
+                if d > clock.now:
+                    clock.advance(d - clock.now)
+            if not poll_and_snap() and not poll_and_snap(force=True):
+                break               # nothing will ever move again
+
+    for n, report in reports.items():
+        sess = manager.session(n)
+        report.served = sess.stats.served
+        report.percentiles = sess.percentiles()
+    return reports

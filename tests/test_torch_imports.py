@@ -32,7 +32,9 @@ def test_walk_sees_the_package():
               for f in FILES[:-1]}
     assert {"traffic/clock.py", "traffic/generators.py", "traffic/replay.py",
             "serving/slo.py", "serving/config.py", "ps/tuning.py",
-            "checkpoint/manager.py", "examples/serve_dlrm.py"} <= ported
+            "checkpoint/manager.py", "examples/serve_dlrm.py",
+            "storage/placement.py", "storage/tenancy.py",
+            "storage/sharded.py", "serving/tenants.py"} <= ported
     sources = {f.name for f in (REPO / "src" / "repro_torch").rglob("*.cu")}
     assert {"embedding_bag.cu", "fused_lookup.cu"} <= sources
 

@@ -278,14 +278,14 @@ def test_host_backed_backend_raises():
 
 
 def test_registry_misuse_is_loud():
-    assert storage.available() == ["device", "tiered"]
+    assert storage.available() == ["device", "sharded", "tiered"]
     with pytest.raises(ValueError, match="already registered"):
         storage.register("device")(storage.DeviceStorage)
     with pytest.raises(TypeError, match="not an EmbeddingStorage"):
         storage.register("not_storage")(object)
     assert "not_storage" not in storage.available()
-    with pytest.raises(storage.UnknownBackendError, match="tiered"):
-        storage.resolve("sharded")
+    with pytest.raises(storage.UnknownBackendError, match="sharded"):
+        storage.resolve("pool")
 
 
 def test_backend_stats_mirror_into_percentiles():
@@ -366,9 +366,29 @@ def test_serve_dlrm_example_on_the_cpu(argv, capsys):
         assert " v=" in out and "updates=" in out
 
 
-@pytest.mark.parametrize("argv,item", [("--storage sharded", "item 9"),
-                                       ("--storage pool", "item 10"),
-                                       ("--tenants 2", "item 11")])
+@pytest.mark.parametrize("argv", [
+    "--storage sharded --shards 2 --hotness med_hot",
+    "--storage sharded --shards 3 --placement balanced --migrate-every 2 "
+    "--hotness high_hot",
+    "--tenants 2 --shards 2",
+])
+def test_serve_dlrm_example_sharded_and_tenants_on_the_cpu(argv, capsys):
+    """`--storage sharded` and `--tenants N` serve 48 queries on the CPU."""
+    from repro_torch.examples import serve_dlrm
+    serve_dlrm.main(("--device cpu --tables 2 --rows 400 --pooling 4 "
+                     "--queries 48 --batch 8 --hot-rows 40 --warm-slots 40 "
+                     + argv).split())
+    out = capsys.readouterr().out
+    if "--tenants" in argv:
+        assert "t0: submitted=24 served=24" in out
+        assert "t1: submitted=24 served=24" in out
+        assert "shared: served=48 tenants=2" in out
+    else:
+        assert "served=  48" in out and "placement=" in out
+
+
+@pytest.mark.parametrize("argv,item", [("--storage pool", "item 10"),
+                                       ("--workers 2", "item 10")])
 def test_serve_dlrm_example_names_what_is_not_ported(argv, item, capsys):
     from repro_torch.examples import serve_dlrm
     with pytest.raises(SystemExit):

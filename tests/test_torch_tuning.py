@@ -397,8 +397,8 @@ def test_estimate_device_budget_fallback():
 
 
 # ---------------------------------------------------------------------------
-# the cross-tenant arbiter (ported for configure(); driven by a tenant
-# manager in a later slice): the same shares, budgets and depths
+# the cross-tenant arbiter (TenantManager drives it; see
+# test_torch_tenants.py): the same shares, budgets and depths
 # ---------------------------------------------------------------------------
 
 class _View:
