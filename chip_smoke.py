@@ -38,7 +38,8 @@ and the script exits non-zero:
                   on a slot map made from the served batch
   6c. replay_device  phase serve's model under a flash crowd on a virtual
                   clock: service time measured at max_batch=256, an SLO of
-                  3x its p99, the shrink rung down to 32; sheds, levels,
+                  4x its median, deadline admission at twice the SLO, the
+                  shrink rung down to 32; sheds, levels,
                   batch sizes, one bag launch per forward, a sample
                   batch's logits against the plain path
   7. serve_tiered the same weights and the first 2 of those batches on the
@@ -74,12 +75,24 @@ and the script exits non-zero:
                   table 0 on two shards, routing updates, the 2 batches
                   again; one batch with the shards in parallel and one
                   serially with each shard's breakdown
+  8d'. serve_pool the same tables, batches, tiers and migration on the
+                  `pool` backend: 4 worker processes (one shard each, a
+                  CUDA context each) over one shared cold segment in
+                  /dev/shm (the table count cut to what /dev/shm and the
+                  host hold, at most 64); logits == device's bit for bit
+                  before and after the migration and after a SIGKILLed
+                  worker's respawn; fused and bag launches counted inside
+                  the workers; one batch timed directly against
+                  serve_sharded's parallel batch; after close() every
+                  worker joined and /dev/shm given back
   8e. replay_tenants  two tenants (steady, flash) of 32 tables on one
                   shared sharded backend (2 shards), max_batch 128
                   unpadded, on a virtual clock: `fair` scheduling with the
                   budget arbiter, then `fifo` without; every answer equal
                   to the tenant's bag-kernel pooling, every arbiter round
-                  within the budget, each tenant's p99 and shed share
+                  within the budget, each tenant's p99 and shed share, and
+                  each tenant's first batch after an arbiter round that
+                  resized its tiers timed apart from its other batches
   9. kernels      one line per ported kernel (the PERF.md rows), with
                   registers, blocks per SM and fraction of the bound, and
                   the launches of each phase that drives it
@@ -87,8 +100,10 @@ and the script exits non-zero:
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
 `--stop-after PHASE` ends the run after that phase (build, parity_fused,
 kernel_time, kernel_diag, replay_device, replay_tiered, serve_sharded,
-replay_tenants; a short first call for a new kernel); the result lines
-are then not printed.
+serve_pool, replay_tenants; a short first call for a new kernel); the
+result lines are then not printed. The pool phase's workers are spawned
+processes that import this file again as `__mp_main__`: its module level
+does no work.
 `--geometry-sweep` makes kernel_diag also time both kernels at each of
 seven launch geometries (bags per block x ring depth).
 """
@@ -149,11 +164,19 @@ LOC_ENTRY_BYTES = 128
 # seed of the trace batch the hot set is planned from: not a served batch
 TRACE_SEED = 100
 # replay_device: the SLO ladder's shrink rung from 256 down to 32, and a
-# flash trace whose spike (16 batch times) outlasts its 5,000 queries, so
-# every SLO check after the spike starts falls inside it (a query's
-# indices are 150 KB: 5,000 queries hold 750 MB of host memory)
+# flash trace whose spike (24 batch times) outlasts its 8,000 queries, so
+# every SLO check after the spike starts falls inside it and the overload
+# lasts ~15 batch times (a query's indices are 150 KB: 8,000 queries hold
+# 1.2 GB of host memory). The SLO target is 4x the median calibration
+# batch (one slow batch of eight does not move it), and the deadline
+# admission sheds only past twice the target: a deadline at the target
+# caps the wait there, so the windowed p99 sits at the target and the
+# ladder can stall on a rung above the floor
 REPLAY_DEVICE_BATCH, REPLAY_DEVICE_MIN = 256, 32
-REPLAY_DEVICE_QUERIES = 5000
+REPLAY_DEVICE_QUERIES = 8000
+REPLAY_DEVICE_SPIKE = 24            # batch times
+REPLAY_DEVICE_TARGET_X = 4          # x the median calibration batch
+REPLAY_DEVICE_DEADLINE_FRAC = 2.0   # shed past this x the target
 # replay_tiered: 128 down to 16, then the degraded rung; 2,000 queries
 # (300 MB beside the 64 GB cold tier); a 64-query SLO window, so the
 # windowed p99 forgets the spike within the base traffic that follows it
@@ -183,6 +206,14 @@ SHARDED_REPLICATE = 0.085
 # rate, flash ~1,200 at 0.25x with a spike 4x its base for 8 batch times
 TENANT_TABLES, TENANT_SHARDS, TENANT_BATCH = 32, 2, 128
 TENANT_STEADY_QUERIES, TENANT_FLASH_QUERIES = 400, 1200
+# serve_pool: serve_sharded's shape on 4 worker processes (one shard each);
+# each worker holds torch and a CUDA context (host bytes, a guess kept
+# generous); /dev/shm keeps a GiB free beside the segment, and close()
+# must give back all but 64 MB of what the phase took from it
+POOL_WORKERS = 4
+POOL_WORKER_HOST_BYTES = 3 * 10**9
+POOL_SHM_HEADROOM_BYTES = 1 << 30
+POOL_SHM_SLACK_BYTES = 64 << 20
 
 
 def emit(phase: str, **fields) -> None:
@@ -1191,28 +1222,32 @@ def replay_summary(sess, rep, tap, profile, target_ms: float) -> dict:
 
 def phase_replay_device(model, pattern, src) -> dict:
     """dlrm_production on `device` under a flash crowd: service time
-    measured at max_batch=256, an SLO of 3x its p99 with the shrink rung
-    down to 32, a flash trace (base 0.5x the service rate, spike 4x base)
-    that ends inside its spike, so at least 4 SLO checks fall in it. A
-    sample batch's answers are held to the plain path on the card."""
+    measured at max_batch=256, an SLO of 4x its median with the shrink rung
+    down to 32 and the deadline admission at twice the SLO, a flash trace
+    (base 0.5x the service rate, spike 4x base) that ends inside its spike,
+    so at least 4 SLO checks fall in it. A sample batch's answers are held
+    to the plain path on the card."""
     emb, F = model.cfg.embedding, model.cfg.dense_features
     dense, idx = src
     lat = calibrate_service(model, REPLAY_DEVICE_BATCH,
                             dense[:8 * REPLAY_DEVICE_BATCH],
                             idx[:8 * REPLAY_DEVICE_BATCH])
     p99_s, t_b = float(np.percentile(lat, 99)), float(lat.mean())
+    median_s = float(np.median(lat))
     t1 = time.perf_counter()
     queries, profile = flash_trace(REPLAY_DEVICE_QUERIES, t_b,
                                    REPLAY_DEVICE_BATCH, emb, F, pattern,
-                                   seed=21, spike_len_batches=16)
+                                   seed=21,
+                                   spike_len_batches=REPLAY_DEVICE_SPIKE)
     trace_s = time.perf_counter() - t1
     rss_trace = host_rss_bytes()
-    target_ms = 3 * p99_s * 1e3
+    target_ms = REPLAY_DEVICE_TARGET_X * median_s * 1e3
     sess = ServingSession(
         model, batcher=BatcherConfig(max_batch=REPLAY_DEVICE_BATCH,
                                      max_wait_s=0.002),
         slo=SLOConfig(target_p99_ms=target_ms,
-                      min_batch=REPLAY_DEVICE_MIN, check_every_batches=2),
+                      min_batch=REPLAY_DEVICE_MIN, check_every_batches=2,
+                      shed_deadline_frac=REPLAY_DEVICE_DEADLINE_FRAC),
         clock=VirtualClock())
     tap = LookupTap(sess.storage)
     served = []
@@ -1258,7 +1293,9 @@ def phase_replay_device(model, pattern, src) -> dict:
         config="dlrm_production", backend="device", tables=emb.num_tables,
         max_batch=REPLAY_DEVICE_BATCH, min_batch=REPLAY_DEVICE_MIN,
         calibration_batch_ms=(lat * 1e3).tolist(),
-        service_p99_ms=p99_s * 1e3, service_rate_qps=REPLAY_DEVICE_BATCH / t_b,
+        service_p99_ms=p99_s * 1e3, service_median_ms=median_s * 1e3,
+        service_rate_qps=REPLAY_DEVICE_BATCH / t_b,
+        deadline_ms=target_ms * REPLAY_DEVICE_DEADLINE_FRAC,
         trace={"kind": "flash", "queries": len(queries),
                "base_qps": profile.base_qps, "spike_qps": profile.spike_qps,
                "seconds_to_make": trace_s},
@@ -1861,6 +1898,317 @@ def phase_serve_sharded(cfg, pattern) -> dict:
         tables_to_host_s=to_host_s, build_s=build_s, failed=failed)
 
 
+def shm_free_bytes() -> int:
+    """Free bytes of /dev/shm, where the pool's shared cold segment lives
+    (a tmpfs: its pages are host memory too)."""
+    st = os.statvfs("/dev/shm")
+    return st.f_bavail * st.f_frsize
+
+
+def proc_rss_bytes(pid: int) -> int | None:
+    """Resident set of process `pid` (/proc/<pid>/status VmRSS), or None
+    where it is gone."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            return next(int(line.split()[1]) * 1024 for line in f
+                        if line.startswith("VmRSS:"))
+    except (OSError, StopIteration):
+        return None
+
+
+def phase_serve_pool(cfg, pattern, sharded: dict) -> dict:
+    """serve_sharded's shape on the `pool` backend: the same tables (seed
+    5), batches and tiers, 4 worker processes (one shard each, each with
+    its own CUDA context) over one shared host cold segment in /dev/shm.
+    The `device` reference first; then 2 batches through a session, the
+    same live migration (6 units), 2 batches, a SIGKILLed worker and a
+    batch that respawns it. Logits equal `device`'s bit for bit
+    throughout; the kernels' launches are counted inside the workers
+    (fused: once a unit a forward); one batch timed directly, as
+    serve_sharded timed its parallel batch, gives the ratio to it. After
+    `close()` every worker is joined and /dev/shm has its bytes back."""
+    gc.collect()
+    emb = dataclasses.replace(cfg.embedding, num_tables=SHARDED_TABLES)
+    R, L, D = emb.rows, emb.pooling, emb.dim
+    B = 2048
+    ps_cfg = tier_ps_config(R)
+    table_bytes = R * D * 4
+    shm_start = shm_free_bytes()
+    machine = {"nproc": os.cpu_count(),
+               "affinity": len(os.sched_getaffinity(0)),
+               "shm_free_bytes": shm_start,
+               "shm_total_bytes": shutil.disk_usage("/dev/shm").total,
+               "host_available_bytes": host_available_bytes()}
+    # host bytes a table: the tiered backend's (its cold tier is the
+    # segment), the collection's authoritative copy, and the hot plans the
+    # pool ships (two int64 [R] arrays, held on both sides); each worker
+    # process adds a fixed cost (torch, its CUDA context)
+    per_table = tiered_host_bytes_per_table(ps_cfg, B, L, R, D) \
+        + table_bytes + 4 * R * 8
+    fixed = POOL_WORKERS * POOL_WORKER_HOST_BYTES
+    t_host = int((machine["host_available_bytes"] - HOST_HEADROOM_BYTES
+                  - fixed) // per_table)
+    t_shm = int((shm_start - POOL_SHM_HEADROOM_BYTES) // table_bytes)
+    T = min(SHARDED_TABLES, t_host, t_shm)
+    reduced = [{"num_tables": [cfg.embedding.num_tables, SHARDED_TABLES],
+                "reason": "serve_sharded's cut, kept so the two are "
+                          "compared on the same tables"}]
+    if T < SHARDED_TABLES:
+        reduced.append({"num_tables": [SHARDED_TABLES, T],
+                        "reason": f"/dev/shm {shm_start} bytes free "
+                                  f"({t_shm} tables), host "
+                                  f"{machine['host_available_bytes']} "
+                                  f"bytes available ({t_host} tables)"})
+    check(T >= POOL_WORKERS, f"serve_pool: room for {T} tables only")
+    emb = dataclasses.replace(emb, num_tables=T)
+    cfg_t = dataclasses.replace(cfg, embedding=emb)
+    rng = np.random.default_rng(6)
+    batches = [(rng.normal(size=(B, cfg.dense_features)).astype(np.float32),
+                sample_indices(pattern, B, T, L, seed=60 + s))
+               for s in range(SHARDED_BATCHES)]
+    failed = []
+
+    # the `device` reference: serve_sharded's tables, on the card
+    dev = DLRM(cfg_t, device="cuda", seed=5)
+    sess = ServingSession(dev, batcher=BatcherConfig(max_batch=B,
+                                                     max_wait_s=0.0))
+    scores = []
+    sess.server.on_batch = lambda batch, s: scores.append(s.copy())
+    for dense, idx in batches:
+        sess.submit_batch(dense, idx)
+    sess.drain(timeout_s=600.0)
+    sess.close()
+    dev_logits = np.concatenate(scores)
+    expect(failed, bool(np.isfinite(dev_logits).all())
+           and dev_logits.shape == (B * len(batches),),
+           "device: non-finite logits or a wrong shape")
+    host_tables = dev.ebc.tables.cpu()
+    dev.ebc.tables = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = DLRM(dataclasses.replace(cfg_t, embedding=dataclasses.replace(
+        emb, storage="pool")), device="cuda", tables=host_tables, seed=5)
+    model.bottom, model.top = dev.bottom, dev.top
+    del dev, host_tables
+    st = storage = model.ebc.storage
+    try:
+        trace = sample_indices(pattern, B, T, L, seed=TRACE_SEED)
+        # build's parts: the hot plans, the segment's creation and fill,
+        # each worker's boot (spawn to constructed units, in parallel)
+        parts = {"boot_s": {}}
+        plan_hot, fill, boot = st._plan_hot, st._fill_segment, st._boot
+
+        def timed(fn, key):
+            def run(*a):
+                t0 = time.perf_counter()
+                out = fn(*a)
+                parts[key] = time.perf_counter() - t0
+                return out
+            return run
+
+        def timed_boot(t, *a):
+            t0 = time.perf_counter()
+            boot(t, *a)
+            parts["boot_s"][t.worker] = time.perf_counter() - t0
+        st._plan_hot = timed(plan_hot, "plan_hot_s")
+        st._fill_segment = timed(fill, "segment_s")
+        st._boot = timed_boot
+        t1 = time.perf_counter()
+        st.build(ps_cfg, trace=trace, num_workers=POOL_WORKERS,
+                 placement="contiguous", replicate_factor=SHARDED_REPLICATE)
+        build_s = time.perf_counter() - t1
+        del st._plan_hot, st._fill_segment, st._boot
+        del trace
+        segment_bytes, threads = int(st._segment.size), st._threads
+        procs = [t.proc for t in st._transports]
+        pids = [p.pid for p in procs]
+        expect(failed, len(st._units) == POOL_WORKERS,
+               f"{len(st._units)} units on {POOL_WORKERS} workers")
+
+        # each worker's lookup: the parent's round trip and the worker's own
+        # seconds (the difference is the frames' travel)
+        rpc = {w: {"round_trip_s": 0.0, "worker_s": 0.0, "calls": 0}
+               for w in range(POOL_WORKERS)}
+        call = st._call
+
+        def timed_call(w, verb, payload=None):
+            t0 = time.perf_counter()
+            out = call(w, verb, payload)
+            if verb == "lookup":
+                rpc[w]["round_trip_s"] += time.perf_counter() - t0
+                rpc[w]["worker_s"] += out["seconds"]
+                rpc[w]["calls"] += 1
+            return out
+        st._call = timed_call
+        respawn_s = []
+        respawn = st._respawn_worker
+
+        def timed_respawn(w):
+            t0 = time.perf_counter()
+            respawn(w)
+            respawn_s.append(time.perf_counter() - t0)
+        st._respawn_worker = timed_respawn
+
+        def launches(forwards: int, units: int, name: str) -> dict:
+            got = st.take_worker_launches()
+            expect(failed, got["fused"] == forwards * units > 0,
+                   f"{name}: {got['fused']} fused launches in the workers, "
+                   f"{forwards} forwards x {units} units")
+            return got
+
+        def serve_batches(name: str) -> tuple[np.ndarray, list, dict]:
+            """The batches through the session one at a time, the workers'
+            launches taken after each."""
+            out, lat, bag, fused_n = [], [], 0, 0
+            units = len(st._units)
+            for dense, idx in batches:
+                scores.clear()
+                sess.submit_batch(dense, idx)
+                sess.drain(timeout_s=600.0)
+                lat.append(sess.stats.batch_latencies_s[-1] * 1e3)
+                out.append(np.concatenate(scores))
+                got = launches(1, units, name)
+                bag += got["bag"]
+                fused_n += got["fused"]
+            logits = np.concatenate(out)
+            equal = bool(np.array_equal(logits, dev_logits))
+            expect(failed, equal, f"{name}: pool != device, max diff "
+                   f"{np.abs(logits - dev_logits).max():.3e}")
+            return logits, lat, {"fused": fused_n, "bag": bag, "units": units,
+                                 "logits_equal_device": equal}
+
+        st.take_worker_launches()
+        t1 = time.perf_counter()
+        sess = ServingSession(model, batcher=BatcherConfig(max_batch=B,
+                                                           max_wait_s=0.0))
+        warmup_s = time.perf_counter() - t1
+        sess.server.on_batch = lambda batch, s: scores.append(s.copy())
+        warm = launches(1, len(st._units), "warmup")
+        for v in rpc.values():
+            v.update(round_trip_s=0.0, worker_s=0.0, calls=0)
+        _, lat, before = serve_batches("before migration")
+        before.update(batch_ms=lat, warmup_fused=warm["fused"],
+                      warmup_bag=warm["bag"])
+        stats = st.stats()
+        expect(failed, stats["hot_hits"] + stats["warm_hits"]
+               + stats["cold_misses"] == stats["total_accesses"] > 0,
+               "merged stats break hot + warm + cold == total")
+        expect(failed, stats["cold_misses"] == 0 or before["bag"] > 0,
+               f"{stats['cold_misses']} cold misses, no bag launch")
+        before["stats"] = {k: stats[k] for k in (
+            "total_accesses", "hot_hits", "warm_hits", "cold_misses",
+            "cache_hit_rate", "cold_gathered_rows")}
+        before["rpc"] = {w: dict(v) for w, v in rpc.items()}
+        before["cold_tier"] = stats["pool"]
+
+        window = skewed_indices(B, T, L, R, seed=70)
+        t1 = time.perf_counter()
+        plan = st.plan_migration({"traffic": [window]},
+                                 threshold=SHARDED_MIGRATE_THRESHOLD)
+        plan_s = time.perf_counter() - t1
+        del window
+        check(plan is not None, "serve_pool: the skewed window gave no "
+                                "migration plan")
+        t1 = time.perf_counter()
+        res = st.install_migration(plan)
+        install_s = time.perf_counter() - t1
+        mig = plan["migration"]
+        replicated = {int(t): list(mig.new.replicas[t])
+                      for t in mig.new.replicated_tables}
+        expect(failed, res["migrated"] and 0 in replicated
+               and len(replicated[0]) == 2,
+               f"migration {res}, replicated {replicated}")
+        for v in rpc.values():
+            v.update(round_trip_s=0.0, worker_s=0.0, calls=0)
+        _, lat2, after = serve_batches("after migration")
+        after.update(batch_ms=lat2, routing=st.update_routing())
+        after["rpc"] = {w: dict(v) for w, v in rpc.items()}
+        # units whose tables are no longer one contiguous run copy them
+        after["cold_tier"] = st.stats()["pool"]
+
+        # a worker SIGKILLed between batches: the next batch respawns it
+        killed = POOL_WORKERS - 1
+        old_pid = st._transports[killed].pid
+        st._transports[killed].kill()
+        dense, idx = batches[0]
+        scores.clear()
+        sess.submit_batch(dense, idx)
+        sess.drain(timeout_s=600.0)
+        kill_ms = sess.stats.batch_latencies_s[-1] * 1e3
+        equal_k = bool(np.array_equal(np.concatenate(scores), dev_logits[:B]))
+        expect(failed, equal_k, "after the respawn: pool != device")
+        expect(failed, len(respawn_s) == 1
+               and st._transports[killed].pid != old_pid,
+               f"respawns {respawn_s}")
+        respawned = {"worker": killed, "respawn_s": respawn_s,
+                     "batch_ms": kill_ms, "logits_equal_device": equal_k,
+                     "launches": launches(1, len(st._units), "respawn")}
+        pids[killed] = st._transports[killed].pid
+        sess.server.close()
+
+        # one batch timed directly, as serve_sharded timed its parallel one
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            pooled = model.ebc(idx)
+        torch.cuda.synchronize()
+        direct_ms = (time.perf_counter() - t1) * 1e3
+        st.take_worker_launches()
+        want = compact_bag_pooled(st._tables, idx, emb.kernel_opts())
+        expect(failed, bool(torch.equal(pooled, want)),
+               "the pool's direct batch != the bag kernel's pooling")
+        del pooled, want
+        status = st.worker_status()
+        rss = {"parent": host_rss_bytes(),
+               "workers": [proc_rss_bytes(p) for p in pids]}
+        worker_peak = [w.get("max_memory_allocated") for w in status]
+        shm_served = shm_free_bytes()
+        procs += [t.proc for t in st._transports]
+        st._call, st._respawn_worker = call, respawn
+        t1 = time.perf_counter()
+        sess.close()                    # closes the storage: joins workers
+        close_s = time.perf_counter() - t1
+        joined = all(not p.is_alive() for p in procs) and not st._transports
+        expect(failed, joined, "a worker outlived close()")
+        del sess, model, st
+        gc.collect()
+        torch.cuda.empty_cache()
+        shm_end = shm_free_bytes()
+        expect(failed, abs(shm_start - shm_end) <= POOL_SHM_SLACK_BYTES,
+               f"/dev/shm free {shm_start} at the start, {shm_end} after "
+               f"close()")
+        par = sharded["timing"]["parallel_ms"]
+        sharded_mean = float(np.mean(sharded["before_migration"]["batch_ms"]))
+        return dict(
+            config="dlrm_production", backend="pool", tables=T, rows=R, dim=D,
+            pooling=L, batch=B, workers=POOL_WORKERS, shards=POOL_WORKERS,
+            placement="contiguous", reduced=reduced, machine=machine,
+            ps_config=dataclasses.asdict(ps_cfg), threads_a_worker=threads,
+            device={"logits": "serve_sharded's tables and batches (seed 5)"},
+            before_migration=before, after_migration=after,
+            migration={"describe": mig.describe(), "replicated": replicated,
+                       "plan_s": plan_s, "install_s": install_s,
+                       "imbalance_before": res.get("imbalance_before"),
+                       "imbalance_after": res.get("imbalance_after")},
+            respawned=respawned, direct_batch_ms=direct_ms,
+            sharded_parallel_ms=par,
+            ratio_to_sharded_parallel=direct_ms / par,
+            ratio_session_batches=float(np.mean(lat)) / sharded_mean,
+            build_s=build_s, build_parts=parts, warmup_s=warmup_s,
+            close_s=close_s,
+            segment_bytes=segment_bytes,
+            worker_peak_device_bytes=worker_peak,
+            worker_peak_device_bytes_sum=sum(b or 0 for b in worker_peak),
+            host_rss_bytes=rss,
+            shm_free_bytes={"start": shm_start, "served": shm_served,
+                            "end": shm_end},
+            failed=failed)
+    finally:
+        # idempotent: a failure anywhere above must not leave the workers
+        # running or the segment in /dev/shm
+        storage.close()
+
+
 def phase_replay_tenants(cfg, pattern) -> dict:
     """Two tenants, `steady` and `flash`, 32 tables each at full width,
     over ONE shared sharded backend (2 shards, tiers of rows // 10), on a
@@ -1970,12 +2318,31 @@ def phase_replay_tenants(cfg, pattern) -> dict:
             view.reset_stats()
             calib.update(cal=cal, t_b=float(np.mean(cal[1:])))
         taps, law = {}, {n: {"batches": 0, "queries": 0} for n in names}
+        # which batches of a tenant are the first after an arbiter round
+        # that resized its tiers (a resize rebuilds the warm caches empty):
+        # they are timed apart from the others
+        resized = {n: False for n in names}
+        tiers = {n: (ps_cfg.hot_rows, ps_cfg.warm_slots) for n in names}
+        after_resize = {n: [] for n in names}
+        for name in names:
+            view = mgr.views[name]
+
+            def retune(budget, name=name, inner=view.retune_capacities):
+                res = inner(budget)
+                if res is not None and \
+                        (res["hot_rows"], res["warm_slots"]) != tiers[name]:
+                    tiers[name] = (res["hot_rows"], res["warm_slots"])
+                    resized[name] = True
+                return res
+            view.retune_capacities = retune
         for name in names:
             tap = taps[name] = LookupTap(mgr.views[name])
             ns = shared.tenants[name]
 
             def hold(batch, scores, tap=tap,
                      tables=shared._tables[ns.start:ns.stop], name=name):
+                after_resize[name].append(resized[name])
+                resized[name] = False
                 indices, pooled = tap.last
                 want = compact_bag_pooled(tables, indices,
                                           emb.kernel_opts())
@@ -2005,6 +2372,12 @@ def phase_replay_tenants(cfg, pattern) -> dict:
                    f"{leg}: law held on {law[name]['queries']} of "
                    f"{rep.served} answers of {name}")
             lat = np.asarray(mgr.session(name).stats.batch_latencies_s)
+            first = np.asarray(after_resize[name], bool)
+            split = ({"first_after_resize_ms": (lat[first] * 1e3).tolist(),
+                      "other_mean_ms": float(lat[~first].mean() * 1e3)
+                      if (~first).any() else None}
+                     if first.size == lat.size else
+                     {"unsplit": f"{first.size} flags, {lat.size} batches"})
             out["tenants"][name] = {
                 "submitted": rep.submitted, "admitted": rep.admitted,
                 "served": rep.served, "shed": rep.shed,
@@ -2013,8 +2386,10 @@ def phase_replay_tenants(cfg, pattern) -> dict:
                 "mean_batch_ms": float(lat.mean() * 1e3),
                 "fused_per_forward": units[name],
                 "bag_launches": sum(r["bag"] for r in tap.records),
+                "resize_split": split,
                 "law": {**law[name], "equal": True}}
             tap.remove()
+            del mgr.views[name].retune_capacities
         if mgr.arbiter is not None:
             ev = mgr.arbiter.events
             conserved = all(sum(e["budgets"].values()) <= e["budget_bytes"]
@@ -2319,6 +2694,14 @@ def main() -> int:
     if stop("serve_sharded"):
         return 0
 
+    # 8d'. serve_pool: serve_sharded's shape on 4 worker processes
+    t0 = time.perf_counter()
+    pool = phase_serve_pool(cfg, pattern, sharded)
+    emit("serve_pool", **pool, seconds=time.perf_counter() - t0)
+    check(not pool["failed"], f"serve_pool: {pool['failed']}")
+    if stop("serve_pool"):
+        return 0
+
     # 8e. replay_tenants: two tenants on one shared sharded backend
     t0 = time.perf_counter()
     tenants = phase_replay_tenants(cfg, pattern)
@@ -2357,6 +2740,8 @@ def main() -> int:
             launches_sharded=sharded["before_migration"]["bag_launches"],
             launches_sharded_migrated=sharded["after_migration"][
                 "bag_launches"],
+            launches_pool=pool["before_migration"]["bag"],
+            launches_pool_migrated=pool["after_migration"]["bag"],
             launches_tenants={leg: out["bag_launches"] for leg, out in
                               tenants["legs"].items()}),
         row("fused_warm_lookup", csrc + "fused_lookup.cu",
@@ -2373,6 +2758,8 @@ def main() -> int:
             launches_sharded=sharded["before_migration"]["fused_launches"],
             launches_sharded_migrated=sharded["after_migration"][
                 "fused_launches"],
+            launches_pool=pool["before_migration"]["fused"],
+            launches_pool_migrated=pool["after_migration"]["fused"],
             launches_tenants={leg: out["fused_launches"] for leg, out in
                               tenants["legs"].items()})]}),
           flush=True)

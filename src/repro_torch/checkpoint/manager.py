@@ -40,7 +40,13 @@ than it saves), so consumers see BOTH kinds in a long-running stream.
 polls between batches.
 
 A port of `repro/checkpoint/manager.py`; arrays may be given as numpy
-arrays or tensors (on any device; bf16 has no numpy form and is refused).
+arrays or tensors (on any device). A bfloat16 array is written as the JAX
+package writes its `ml_dtypes` ones: numpy's 2-byte void (`|V2`) over the
+16-bit patterns, with `"bfloat16"` as its manifest dtype. On reading, a
+`|V2` file becomes bfloat16 again: `restore` returns bfloat16 tensors, and
+the version records and snapshots carry bfloat16 values as their 16-bit
+patterns (np.int16, `utils.host_array`'s form), which the storage
+backends' `apply_update` takes as they are.
 """
 from __future__ import annotations
 
@@ -52,6 +58,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.utils import (BF16, dtype_name, host_array, host_dtype,
+                               to_tensor)
+
 
 class CheckpointError(RuntimeError):
     """Typed checkpoint validation/corruption failure (never an `assert`:
@@ -59,11 +68,18 @@ class CheckpointError(RuntimeError):
     corruption detection where it matters)."""
 
 
-def _as_numpy(x) -> np.ndarray:
-    """A host numpy array of `x` (a tensor on any device, or array-like)."""
-    if torch.is_tensor(x):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+def _on_disk(arr: np.ndarray, name: str) -> np.ndarray:
+    """The array `np.save` writes: bfloat16 bits as a 2-byte void."""
+    if name == BF16:
+        return np.ascontiguousarray(arr).view(np.dtype("V2"))
+    return arr
+
+
+def _load(path: str) -> np.ndarray:
+    """`np.load`, with a 2-byte void (bfloat16) read as its 16-bit
+    patterns."""
+    arr = np.load(path)
+    return arr.view(np.int16) if dtype_name(arr.dtype) == BF16 else arr
 
 
 def _flatten(params: dict) -> list[tuple[str, object]]:
@@ -108,11 +124,11 @@ class CheckpointManager:
             "keys": keys,
         }
         for i, (_, leaf) in enumerate(leaves):
-            arr = _as_numpy(leaf)
+            arr, name = host_array(leaf)
             path = os.path.join(tmp, f"arr_{i:05d}.npy")
-            np.save(path, arr)
+            np.save(path, _on_disk(arr, name))
             manifest["leaves"].append(
-                {"shape": list(arr.shape), "dtype": str(arr.dtype)})
+                {"shape": list(arr.shape), "dtype": name})
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
             f.flush()
@@ -189,7 +205,7 @@ class CheckpointManager:
                 f"model expects {len(leaves_like)}")
         out = {}
         for i, (key, leaf) in enumerate(leaves_like):
-            arr = np.load(os.path.join(d, f"arr_{i:05d}.npy"))
+            arr = _load(os.path.join(d, f"arr_{i:05d}.npy"))
             want = manifest["leaves"][i]
             if list(arr.shape) != want["shape"]:
                 raise CheckpointError(
@@ -202,7 +218,7 @@ class CheckpointManager:
                     f"the model's is {list(leaf.shape)}")
             dev = device if device is not None else (
                 leaf.device if torch.is_tensor(leaf) else "cpu")
-            out[key] = torch.from_numpy(arr).to(dev)
+            out[key] = to_tensor(arr, want["dtype"]).to(dev)
         return out, manifest["extra"]
 
     # -- versioned embedding snapshots (online model updates) ---------------
@@ -217,11 +233,11 @@ class CheckpointManager:
 
     def _publish_version(self, version: int, manifest: dict,
                          payloads: dict) -> str:
-        """Write `payloads` ({filename: ndarray}) + manifest into a tmp
-        dir, then publish atomically — the identical discipline `save`
-        uses for steps (tmp dir -> fsync'd manifest -> os.replace ->
-        pointer), so a consumer polling LATEST_VERSION can never observe
-        a half-written version."""
+        """Write `payloads` ({filename: ndarray}, as they go on disk) +
+        manifest into a tmp dir, then publish atomically — the identical
+        discipline `save` uses for steps (tmp dir -> fsync'd manifest ->
+        os.replace -> pointer), so a consumer polling LATEST_VERSION can
+        never observe a half-written version."""
         tmp = os.path.join(self.root, f".tmp_v_{version:09d}")
         final = self._version_dir(version)
         if os.path.exists(tmp):
@@ -254,7 +270,11 @@ class CheckpointManager:
         `version` (monotonically increasing). Every delta chain re-roots
         here, so a full snapshot bounds reconstruction cost."""
         version = self._check_version(version)
-        tables = _as_numpy(tables)
+        tables, name = host_array(tables)
+        return self._save_full(version, tables, name, extra)
+
+    def _save_full(self, version: int, tables: np.ndarray, name: str,
+                   extra: Optional[dict]) -> str:
         if tables.ndim != 3:
             raise CheckpointError(
                 f"embedding snapshot must be [T, R, D], got shape "
@@ -263,11 +283,11 @@ class CheckpointManager:
             "version": version,
             "kind": "full",
             "shape": list(tables.shape),
-            "dtype": str(tables.dtype),
+            "dtype": name,
             "extra": extra or {},
         }
         return self._publish_version(version, manifest,
-                                     {"tables.npy": tables})
+                                     {"tables.npy": _on_disk(tables, name)})
 
     def save_delta(self, version: int, changed_rows_per_table: dict, *,
                    full_fallback_ratio: float = 0.5,
@@ -289,14 +309,14 @@ class CheckpointManager:
                 "version with save_version()")
         base_manifest = self.load_version_manifest(base)
         T, R, D = base_manifest["shape"]
-        dtype = np.dtype(base_manifest["dtype"])
+        name = base_manifest["dtype"]
         tables_entries = []
         payloads: dict[str, np.ndarray] = {}
         changed = 0
         for t in sorted(changed_rows_per_table):
             rows, values = changed_rows_per_table[t]
-            rows = _as_numpy(rows).astype(np.int64)
-            values = _as_numpy(values)
+            rows = host_array(rows)[0].astype(np.int64)
+            values, got = host_array(values)
             t = int(t)
             if not 0 <= t < T:
                 raise CheckpointError(
@@ -308,10 +328,10 @@ class CheckpointManager:
                 raise CheckpointError(
                     f"delta v{version}: table {t} values shape "
                     f"{list(values.shape)} != [{rows.size}, {D}]")
-            if values.dtype != dtype:
+            if values.dtype != host_dtype(name):
                 raise CheckpointError(
-                    f"delta v{version}: table {t} dtype {values.dtype} != "
-                    f"snapshot dtype {dtype} — updates must preserve the "
+                    f"delta v{version}: table {t} dtype {got} != "
+                    f"snapshot dtype {name} — updates must preserve the "
                     f"table dtype bit-exactly")
             if rows.size == 0:
                 continue
@@ -321,21 +341,21 @@ class CheckpointManager:
                                    "values": f"t{t:05d}_vals.npy",
                                    "num_rows": int(rows.size)})
             payloads[f"t{t:05d}_rows.npy"] = rows
-            payloads[f"t{t:05d}_vals.npy"] = values
+            payloads[f"t{t:05d}_vals.npy"] = _on_disk(values, name)
         if changed > full_fallback_ratio * (T * R):
             tables = self.load_version(base)
             for t in sorted(changed_rows_per_table):
                 rows, values = changed_rows_per_table[t]
-                rows = _as_numpy(rows).astype(np.int64)
+                rows = host_array(rows)[0].astype(np.int64)
                 if rows.size:
-                    tables[int(t), rows] = _as_numpy(values)
-            return self.save_version(version, tables, extra=extra)
+                    tables[int(t), rows] = host_array(values)[0]
+            return self._save_full(version, tables, name, extra)
         manifest = {
             "version": version,
             "kind": "delta",
             "base": base,
             "shape": [T, R, D],
-            "dtype": str(dtype),
+            "dtype": name,
             "tables": tables_entries,
             "extra": extra or {},
         }
@@ -360,14 +380,14 @@ class CheckpointManager:
         T, R, _ = manifest["shape"]
         tables: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         if manifest["kind"] == "full":
-            full = np.load(os.path.join(d, "tables.npy"))
+            full = _load(os.path.join(d, "tables.npy"))
             rows = np.arange(R, dtype=np.int64)
             for t in range(T):
                 tables[t] = (rows, full[t])
         else:
             for entry in manifest["tables"]:
-                rows = np.load(os.path.join(d, entry["rows"]))
-                vals = np.load(os.path.join(d, entry["values"]))
+                rows = _load(os.path.join(d, entry["rows"]))
+                vals = _load(os.path.join(d, entry["values"]))
                 tables[int(entry["table"])] = (rows, vals)
         return {"version": manifest["version"], "kind": manifest["kind"],
                 "base": manifest.get("base"), "shape": manifest["shape"],
@@ -390,8 +410,8 @@ class CheckpointManager:
             if manifest["kind"] == "full":
                 break
             v = manifest["base"]
-        tables = np.load(os.path.join(self._version_dir(chain[-1]),
-                                      "tables.npy")).copy()
+        tables = _load(os.path.join(self._version_dir(chain[-1]),
+                                    "tables.npy")).copy()
         for v in reversed(chain[:-1]):
             for t, (rows, vals) in self.load_update(v)["tables"].items():
                 tables[t, rows] = vals

@@ -8,8 +8,12 @@ identical transaction plumbing: version monotonicity, one open
 transaction at a time, per-table row buffering with last-write-wins
 merge, and geometry/dtype validation against the backend's table shape.
 `UpdateTxn` is that plumbing, factored here (the neutral bottom layer)
-so the storage backends (and, in a later slice, the parameter server) can
-all import it without a cycle.
+so the storage backends and the parameter server can all import it
+without a cycle.
+
+Values may be numpy arrays or tensors on any device. A bfloat16 table's
+rows are buffered as their 16-bit patterns (`utils.host_array`), so the
+transaction and its merge never round a value.
 
 The buffered rows are INVISIBLE to lookups by construction — the
 backend only touches its tiers at commit, from the single serving
@@ -18,6 +22,8 @@ thread, so a lookup racing an apply serves the old version bit-exact.
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.utils import dtype_name, host_array, host_dtype
 
 
 class UpdateTxn:
@@ -43,7 +49,7 @@ class UpdateTxn:
             num_tables: int, num_rows: int, dim: int, dtype) -> None:
         table = int(table)
         rows = np.asarray(rows, np.int64).ravel()
-        values = np.asarray(values)
+        values, _ = host_array(values)
         if not 0 <= table < num_tables:
             raise ValueError(f"update v{self.version}: table {table} "
                              f"outside [0, {num_tables})")
@@ -54,10 +60,10 @@ class UpdateTxn:
             raise ValueError(
                 f"update v{self.version}: table {table} values shape "
                 f"{list(values.shape)} != [{rows.size}, {dim}]")
-        if values.dtype != np.dtype(dtype):
+        if values.dtype != host_dtype(dtype):
             raise ValueError(
                 f"update v{self.version}: table {table} dtype "
-                f"{values.dtype} != table dtype {np.dtype(dtype)} — "
+                f"{values.dtype} != table dtype {dtype_name(dtype)} — "
                 f"updates must preserve the table dtype bit-exactly")
         if rows.size == 0:
             return                       # empty delta for this table: legal

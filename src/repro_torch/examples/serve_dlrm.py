@@ -10,11 +10,13 @@ kernel), `tiered` (hot block and warm cache on the device, cold tier on
 the host, hits pooled by the fused lookup kernel) or `sharded` (the
 tiered store split table-wise over `--shards` shard workers, one fused
 launch a unit; `--placement balanced` plans the split from the trace and
-`--migrate-every N` re-plans it live).
+`--migrate-every N` re-plans it live) or `pool` (the same units served by
+`--workers` worker processes, each with its own CUDA context, over one
+shared host cold tier; the run ends with a `pool workers k/n alive` line).
 
-`--tenants N` serves N DLRMs over ONE shared sharded backend
-(`TenantManager` with the fair-share arbiter), their traffic merged on
-one virtual clock by `replay_tenants`.
+`--tenants N` serves N DLRMs over ONE shared sharded (or, with `--storage
+pool`, process-pool) backend (`TenantManager` with the fair-share
+arbiter), their traffic merged on one virtual clock by `replay_tenants`.
 
 `--update-every N` arms zero-downtime online model updates: a
 trainer-side `ModelUpdateStream` publishes a delta touching
@@ -36,6 +38,7 @@ ladder). The run ends with a shed/degraded summary.
         --update-every 4 --update-rows 0.02
     python -m repro_torch.examples.serve_dlrm --storage sharded --shards 4 \\
         --placement balanced --migrate-every 8
+    python -m repro_torch.examples.serve_dlrm --storage pool --workers 4
     python -m repro_torch.examples.serve_dlrm --tenants 2
     python -m repro_torch.examples.serve_dlrm --device cpu --rows 5000 \\
         --queries 64 --batch 16 --hotness med_hot
@@ -65,8 +68,6 @@ from repro_torch.traffic import (VirtualClock, make_traffic, replay,
 
 HOTNESS = ("one_item", "high_hot", "med_hot", "low_hot", "random")
 DIM = 128
-# the backend of the JAX package that the port has not reached
-NOT_PORTED = {"pool": "ROADMAP.md Queue 1 item 10"}
 
 
 def parse_args(argv=None):
@@ -84,9 +85,11 @@ def parse_args(argv=None):
                     default="device",
                     help="storage backend (repro_torch.storage registry)")
     ap.add_argument("--shards", type=int, default=2,
-                    help="sharded: table-wise shard workers")
-    ap.add_argument("--workers", type=int, default=0,
-                    help="pool: worker processes (not ported yet)")
+                    help="sharded/pool: table-wise shards")
+    ap.add_argument("--workers", type=int, default=2,
+                    help="pool: worker PROCESSES hosting the shards "
+                         "(per-worker device caches over one shared host "
+                         "cold tier)")
     ap.add_argument("--placement", choices=("contiguous", "balanced"),
                     default="contiguous",
                     help="sharded: table-to-shard assignment — contiguous "
@@ -120,9 +123,9 @@ def parse_args(argv=None):
     ap.add_argument("--update-rows", type=float, default=0.01,
                     help="fraction of one table's rows each delta touches")
     ap.add_argument("--tenants", type=int, default=0,
-                    help="serve N tenant DLRMs over ONE shared sharded "
-                         "backend (TenantManager + fair-share arbiter; 0 = "
-                         "single-tenant modes)")
+                    help="serve N tenant DLRMs over ONE shared "
+                         "sharded/pool backend (TenantManager + fair-share "
+                         "arbiter; 0 = single-tenant modes)")
     ap.add_argument("--trace", choices=("steady", "diurnal", "flash",
                                         "shift"), default=None,
                     help="replay a timestamped trace on a virtual clock "
@@ -137,9 +140,6 @@ def parse_args(argv=None):
                     help="trace mode: offered base rate (0 = 0.5x the "
                          "measured service rate)")
     args = ap.parse_args(argv)
-    if args.storage in NOT_PORTED or args.workers:
-        ap.error(f"--storage pool and --workers are not ported yet: "
-                 f"{NOT_PORTED['pool']}")
     if args.slo_p99_ms and not (args.trace or args.tenants):
         ap.error("--slo-p99-ms needs --trace: the SLO controller watches "
                  "windowed p99 over a timestamped replay")
@@ -161,6 +161,8 @@ def build_model(args, hotness: str):
         kw = {}
         if caps.shardable:
             kw = dict(num_shards=args.shards, placement=args.placement)
+        if hasattr(model.ebc.storage, "worker_status"):    # process pool
+            kw["num_workers"] = args.workers
         model.ebc.storage.build(
             ps_config(args), trace=np.stack([q.indices for q in trace]),
             **kw)
@@ -176,6 +178,22 @@ def ps_config(args) -> PSConfig:
                     prefetch_depth=2, window_batches=16,
                     async_prefetch=args.async_mode, warm_backing="device",
                     fused_lookup=True)
+
+
+def print_worker_status(storage) -> None:
+    """Pool backends: one operator liveness line per run — every worker
+    process, its pid, and whether the heartbeat answered."""
+    status_fn = getattr(storage, "worker_status", None)
+    if status_fn is None:
+        return
+    status = status_fn()
+    alive = sum(1 for w in status if w["alive"])
+    cells = " ".join(
+        f"w{w['worker']}:pid={w['pid']}"
+        + ("" if w["alive"] else "(dead)")
+        + (f":units={w['units']}" if w.get("units") is not None else "")
+        for w in status)
+    print(f"pool workers {alive}/{len(status)} alive  {cells}", flush=True)
 
 
 def _sync(model) -> None:
@@ -233,6 +251,7 @@ def run_session(args, hotness: str) -> dict:
                     pub.publish_delta({t: (rows, rng_u.normal(
                         size=(n, DIM)).astype(np.float32))})
             sess.drain()
+            print_worker_status(model.ebc.storage)  # before close() joins
         pct, viol = sess.percentiles(), sess.sla_violations()
         if device_resident:
             # embedding-stage share of a batch (paper Fig. 1)
@@ -321,6 +340,7 @@ def run_trace(args) -> list[str]:
         window = max(32, min(256, args.queries // 2))
         rep = replay(sess, gen.queries(args.queries), window_queries=window)
         reasons = dict(sess.stats.shed_reasons)
+        print_worker_status(sess.storage)
     finally:
         sess.close()
     lines = [f"trace={args.trace} base_qps={base:.0f} "
@@ -351,30 +371,33 @@ def run_trace(args) -> list[str]:
 
 def run_tenants(args) -> list[str]:
     """Multi-tenant serving: `--tenants` DLRMs over ONE shared sharded
-    backend. Each tenant gets its own steady stream; `replay_tenants`
+    (`--storage pool`: process-pool) backend. Each tenant gets its own
+    steady stream; `replay_tenants`
     merges them on one virtual clock through the manager's fair
     scheduler, and the arbiter re-splits the device budget and prefetch
     depth from live per-tenant load. Returns one line per tenant and the
     shared-backend summary."""
+    backend = "pool" if args.storage == "pool" else "sharded"
+    build_kw = {"num_workers": args.workers} if backend == "pool" else {}
     specs = []
     for t in range(args.tenants):
         # same rows/dim (the shared axis), per-tenant pooling
         cfg = DLRMConfig(embedding=EmbeddingStageConfig(
             num_tables=args.tables, rows=args.rows, dim=DIM,
-            pooling=max(2, args.pooling - 2 * t), storage="sharded"))
+            pooling=max(2, args.pooling - 2 * t), storage=backend))
         specs.append(TenantSpec(name=f"t{t}", model=DLRM(
             cfg, device=args.device, seed=t)))
     slo = (SLOConfig(target_p99_ms=args.slo_p99_ms,
                      min_batch=max(2, args.batch // 8))
            if args.slo_p99_ms else None)
     mgr = TenantManager(
-        specs, backend="sharded",
+        specs, backend=backend,
         batcher=BatcherConfig(max_batch=args.batch, max_wait_s=0.002),
         sla_ms=500, refresh_every_batches=args.refresh_every,
         controllers=configure(slo=slo, arbiter=ArbiterConfig(
             every_batches=8, budget_fallback_bytes=64 << 20)),
         scheduling="fair", clock=VirtualClock(), ps_cfg=ps_config(args),
-        num_shards=args.shards)
+        num_shards=args.shards, **build_kw)
     try:
         # calibrate offered load to the measured shared service rate; the
         # probe batches are not traffic
@@ -401,9 +424,10 @@ def run_tenants(args) -> list[str]:
             for t, spec in enumerate(specs)}
         reports = replay_tenants(mgr, streams)
         pct, st = mgr.percentiles(), mgr.stats()
+        print_worker_status(mgr.shared)
     finally:
         mgr.close()
-    lines = [f"tenants={args.tenants} backend=sharded "
+    lines = [f"tenants={args.tenants} backend={backend} "
              f"per_tenant_qps={per_tenant:.0f} "
              f"({args.tenants * per_tenant / svc_qps:.2f}x service rate)"]
     per = pct["tenants"] if "tenants" in pct else {mgr.names[0]: pct}

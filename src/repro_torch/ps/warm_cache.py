@@ -28,7 +28,10 @@ at batch start counts every access as a hit; a missed row counts ONE miss
 hardware cache line filled on first touch.
 
 A port of `repro/ps/warm_cache.py`: `WarmCache` is the reference's, line
-for line; only `DeviceWarmCache`'s payload moves to torch.
+for line; only `DeviceWarmCache`'s payload moves to torch. Its per-cache
+fused verbs (`build_slot_map`, `lookup_fused`) serve one table; the
+parameter server builds every table's slot map at once instead
+(`ParameterServer.build_slot_map`).
 """
 from __future__ import annotations
 
@@ -237,3 +240,31 @@ class DeviceWarmCache(WarmCache):
 
     def device_bytes(self) -> int:
         return int(self.capacity * self.dim * self.dtype.itemsize)
+
+    # -- fused lookup path ---------------------------------------------------
+    def build_slot_map(self, rows: np.ndarray) -> np.ndarray:
+        """rows [B, L] raw ids -> the fused kernel's slot map (the slot, or
+        -1 = MISS).
+
+        A pure tag-store read like `probe()`: no counter moves and the
+        payload is not touched; the caller decides when an access becomes
+        a hit or a miss (`touch()`/`admit()`)."""
+        rows = np.asarray(rows)
+        u, inv = np.unique(rows.ravel(), return_inverse=True)
+        return self.probe(u)[inv].reshape(rows.shape)
+
+    def lookup_fused(self, rows: np.ndarray, weights=None, *,
+                     mode: str = "sum", backend: str = "auto", opts=None):
+        """Cache-only fused lookup: [B, L] raw ids -> `FusedLookupResult`.
+
+        Pooled values carry zero contribution at miss positions (the
+        kernel's partial output, what degraded serving answers with); the
+        miss list is exactly the looked-up rows the cache does not hold.
+        Read-only, like `probe()`. On a payload on the card this launches
+        the fused kernel (`fused_warm_lookup`); on the CPU it takes the
+        plain version."""
+        from repro_torch.kernels.embedding_bag.fused import fused_warm_lookup
+        rows = np.asarray(rows)
+        return fused_warm_lookup(self.data, self.build_slot_map(rows), rows,
+                                 weights, mode=mode, backend=backend,
+                                 opts=opts)

@@ -32,8 +32,8 @@ API is a strict superset, not a fork.
 A port of `repro/serving/tenants.py`. Where it differs: a `TenantSpec`
 carries no params (a port model holds its weights), each tenant's tables
 are brought to the host once to build the shared backend, and the union
-collection lives on the tenants' device. Only the `sharded` backend is
-ported; `backend="pool"` raises (ROADMAP.md Queue 1 item 10).
+collection lives on the tenants' device (with `backend="pool"`, so do the
+worker processes' units).
 """
 from __future__ import annotations
 
@@ -96,10 +96,6 @@ class TenantManager:
             raise ValueError(f"duplicate tenant names: {names}")
         if scheduling not in ("fair", "fifo"):
             raise ValueError("scheduling must be 'fair' or 'fifo'")
-        if backend == "pool":
-            raise NotImplementedError(
-                "the process-pool backend is not ported yet (ROADMAP.md "
-                "Queue 1 item 10); tenants share backend='sharded'")
         self._check_geometry(specs)
         base = resolve_controllers(controllers, auto_tune, slo,
                                    where="TenantManager")

@@ -28,10 +28,11 @@ Public surface:
                           (`build(..., tenants={name: count})`) and the
                           per-tenant `EmbeddingStorage` facade that
                           `ServingSession` binds to, unchanged.
+  `PoolStorage`         — `"pool"`: the sharded store's units served by
+                          worker processes (each with its own CUDA
+                          context) over one shared host cold tier; typed
+                          `WorkerDeadError` / `RemoteCallError`.
   `require_capability`  — fail fast when a backend lacks a capability.
-
-The `pool` backend of `repro.storage` (worker processes) comes in a later
-slice (ROADMAP.md Queue 1 item 10).
 """
 from repro_torch.storage.base import (CapabilityError, EmbeddingStorage,
                                       StorageCapabilities,
@@ -49,6 +50,8 @@ from repro_torch.storage.tenancy import TenantNamespace, TenantStorage
 from repro_torch.storage.device import DeviceStorage
 from repro_torch.storage.tiered import TieredStorage
 from repro_torch.storage.sharded import ShardedStorage
+from repro_torch.storage.pool import (PoolStorage, RemoteCallError,
+                                      WorkerDeadError)
 
 __all__ = ["CapabilityError", "EmbeddingStorage", "StorageCapabilities",
            "require_capability", "UnknownBackendError", "available",
@@ -56,4 +59,5 @@ __all__ = ["CapabilityError", "EmbeddingStorage", "StorageCapabilities",
            "TieredStorage", "ShardedStorage", "ShardPlacement",
            "estimate_table_loads", "plan_shard_placement", "MigrationPlan",
            "ReplicaRouter", "plan_migration", "TenantNamespace",
-           "TenantStorage"]
+           "TenantStorage", "PoolStorage", "RemoteCallError",
+           "WorkerDeadError"]

@@ -20,6 +20,7 @@ from repro_torch.core.update import UpdateTxn, require_open
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 from repro_torch.storage.base import EmbeddingStorage, StorageCapabilities
 from repro_torch.storage.registry import register
+from repro_torch.utils import to_tensor
 
 
 @register("device")
@@ -73,7 +74,7 @@ class DeviceStorage(EmbeddingStorage):
                     else self.ebc._remap[t][rows_t].long())
             # in place: the tables buffer is the one the engine reads
             tables[t].index_put_(
-                (phys,), torch.as_tensor(vals).to(tables.device))
+                (phys,), to_tensor(vals, tables.dtype).to(tables.device))
             applied += int(rows.size)
         self._version = txn.version
         self._update_txn = None

@@ -1,7 +1,7 @@
 """String-keyed backend registry for `EmbeddingStorage` implementations.
 
 `EmbeddingStageConfig.storage` resolves here: the in-tree backends
-(`device`, `tiered`, `sharded`) register at import of
+(`device`, `tiered`, `sharded`, `pool`) register at import of
 `repro_torch.storage`, and out-of-tree backends can `@register("mine")`
 their own class — the whole stack (EmbeddingBagCollection,
 ServingSession) picks them up by name with no further wiring.

@@ -16,6 +16,8 @@ import json
 import os
 
 import jax
+import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ import torch
 from repro import serving as jserving
 from repro.checkpoint import CheckpointManager as JManager
 from repro.checkpoint import ModelUpdateStream as JStream
+from repro.core import EmbeddingBagCollection as JEBC
 from repro.core.embedding import EmbeddingStageConfig as JStage
 from repro.models.dlrm import DLRM as JDLRM
 from repro.models.dlrm import DLRMConfig as JConfig
@@ -32,7 +35,8 @@ from repro_torch.checkpoint import (CheckpointError, CheckpointManager,
                                     ModelUpdateStream)
 from repro_torch.convert import load_reference_params
 from repro_torch.core import make_pattern
-from repro_torch.core.embedding import (EmbeddingStageConfig,
+from repro_torch.core.embedding import (EmbeddingBagCollection,
+                                        EmbeddingStageConfig,
                                         _pool_rows_core)
 from repro_torch.models import DLRM, DLRMConfig
 from repro_torch.ps import PSConfig
@@ -125,6 +129,142 @@ def test_version_guards(tmp_path):
     with pytest.raises(CheckpointError, match=r"\[T, R, D\]"):
         mgr.save_version(2, tables[0])
     assert mgr.latest_version() == 1
+
+
+# ---------------------------------------------------------------------------
+# bfloat16: updates and checkpoints carry the 16-bit patterns
+# ---------------------------------------------------------------------------
+
+def _bf16(x):
+    return np.asarray(x, np.float32).astype(ml_dtypes.bfloat16)
+
+
+def _bf16_ebcs(bits):
+    """(JAX device collection + its params, port device collection) over
+    the same bf16 tables."""
+    geo = dict(num_tables=TABLES, rows=ROWS, dim=DIM, pooling=POOL,
+               dtype="bfloat16")
+    jebc = JEBC(JStage(**geo, backend="xla"))
+    params = {"tables": jnp.asarray(bits.view(ml_dtypes.bfloat16))}
+    jebc.storage.build(params)
+    ebc = EmbeddingBagCollection(
+        EmbeddingStageConfig(**geo), device="cpu",
+        tables=torch.from_numpy(bits.copy()).view(torch.bfloat16))
+    return jebc, params, ebc
+
+
+def _assert_same_npy(a, b):
+    """Two files hold the same array (dtype and bytes) or, for manifests,
+    the same leaves' dtypes and shapes. (The JAX package's header says
+    `<V2` where numpy alone writes `|V2`; both load as `|V2`.)"""
+    if a.suffix == ".json":
+        ja, jb = json.loads(a.read_text()), json.loads(b.read_text())
+        assert ja.get("leaves", ja.get("dtype")) == \
+            jb.get("leaves", jb.get("dtype"))
+        return
+    x, y = np.load(a), np.load(b)
+    assert x.dtype == y.dtype and x.shape == y.shape, a.name
+    assert x.tobytes() == y.tobytes(), a.name
+
+
+def test_bf16_update_applied_by_both_packages_gives_the_same_bits():
+    rng = np.random.default_rng(5)
+    bits = _bf16(rng.normal(size=(TABLES, ROWS, DIM))).view(np.int16)
+    jebc, params, ebc = _bf16_ebcs(bits)
+    st = ebc.storage
+    for v in (1, 2):
+        changed, _ = _delta(rng, bits.view(ml_dtypes.bfloat16))
+        jebc.storage.begin_update(v)
+        st.begin_update(v)
+        for t, (rows, vals) in changed.items():
+            vals = _bf16(vals)
+            jebc.storage.apply_update(t, rows, vals)
+            # a bf16 tensor, then the JAX package's own numpy form
+            st.apply_update(t, rows, torch.from_numpy(
+                vals.view(np.int16)).view(torch.bfloat16) if v == 1
+                else vals)
+        jebc.storage.commit_update(v)
+        assert st.commit_update(v)["version"] == v
+        np.testing.assert_array_equal(
+            ebc.tables.view(torch.int16).numpy(),
+            np.asarray(params["tables"]).view(np.int16))
+    st.begin_update(3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        st.apply_update(0, np.array([0]), np.zeros((1, DIM), np.float32))
+
+
+def test_bf16_chain_written_by_jax_reads_in_port_with_the_same_bits(
+        tmp_path):
+    """A bf16 full + delta chain the JAX package wrote (its `|V2` files):
+    the port reads the same bits, and its records update a bf16 table to
+    the chain's snapshot. The port writes the same files back."""
+    rng = np.random.default_rng(6)
+    tables = _bf16(rng.normal(size=(TABLES, ROWS, DIM)))
+    jm = JManager(str(tmp_path / "jax"))
+    jm.save_version(1, tables)
+    changed, want = _delta(rng, tables)
+    jm.save_delta(2, {t: (r, _bf16(v)) for t, (r, v) in changed.items()})
+    mgr = CheckpointManager(str(tmp_path / "jax"))
+    want_bits = _bf16(want).view(np.int16)
+    got = mgr.load_version(2)
+    assert got.dtype == np.int16
+    np.testing.assert_array_equal(got, want_bits)
+    np.testing.assert_array_equal(mgr.load_version(1),
+                                  tables.view(np.int16))
+    recs = [mgr.load_update(v) for v in (1, 2)]
+    assert [r["dtype"] for r in recs] == ["bfloat16", "bfloat16"]
+    _, _, ebc = _bf16_ebcs(np.zeros_like(want_bits))
+    for rec in recs:
+        ebc.storage.begin_update(rec["version"])
+        for t, (rows, vals) in rec["tables"].items():
+            ebc.storage.apply_update(t, rows, vals)
+        ebc.storage.commit_update(rec["version"])
+    np.testing.assert_array_equal(ebc.tables.view(torch.int16).numpy(),
+                                  want_bits)
+    # the port writes the chain as the JAX package does: the same files
+    pm = CheckpointManager(str(tmp_path / "port"))
+    pm.save_version(1, torch.from_numpy(tables.view(np.int16)).view(
+        torch.bfloat16))
+    pm.save_delta(2, {t: (r, torch.from_numpy(_bf16(v).view(np.int16))
+                          .view(torch.bfloat16))
+                      for t, (r, v) in changed.items()})
+    for v in (1, 2):
+        for name in os.listdir(tmp_path / "jax" / f"v_{v:09d}"):
+            a = tmp_path / "jax" / f"v_{v:09d}" / name
+            b = tmp_path / "port" / f"v_{v:09d}" / name
+            if name == "manifest.json":
+                assert json.loads(a.read_text()) == json.loads(
+                    b.read_text())
+            else:
+                _assert_same_npy(a, b)
+    # a delta touching most rows lands as a full bf16 snapshot
+    big = {0: (np.arange(ROWS), _bf16(rng.normal(size=(ROWS, DIM))))}
+    pm.save_delta(3, big, full_fallback_ratio=0.1)
+    assert pm.load_version_manifest(3)["dtype"] == "bfloat16"
+    want_bits[0] = big[0][1].view(np.int16)
+    np.testing.assert_array_equal(pm.load_version(3), want_bits)
+
+
+def test_bf16_step_round_trip_and_jax_step_in_port(tmp_path):
+    """A bf16 step: the port writes the file the JAX package writes, and
+    restores the JAX package's step as bf16 tensors with the same bits."""
+    bits = _bf16(np.random.default_rng(7).normal(
+        size=(TABLES, ROWS, DIM))).view(np.int16)
+    sd = {"ebc.tables": torch.from_numpy(bits).view(torch.bfloat16),
+          "bottom.w0": torch.ones(4, 16)}
+    JManager(str(tmp_path / "jax")).save(1, {
+        "ebc": {"tables": jnp.asarray(bits.view(ml_dtypes.bfloat16))},
+        "bottom": {"w0": jnp.ones((4, 16))}})
+    CheckpointManager(str(tmp_path / "port")).save(1, sd)
+    for name in ("arr_00000.npy", "arr_00001.npy", "manifest.json"):
+        _assert_same_npy(tmp_path / "jax" / "step_000000001" / name,
+                         tmp_path / "port" / "step_000000001" / name)
+    for root in ("jax", "port"):
+        out, _ = CheckpointManager(str(tmp_path / root)).restore(sd)
+        assert out["ebc.tables"].dtype == torch.bfloat16
+        assert torch.equal(out["ebc.tables"].view(torch.int16),
+                           sd["ebc.tables"].view(torch.int16))
+        assert torch.equal(out["bottom.w0"], sd["bottom.w0"])
 
 
 def _jax_params(seed=0):

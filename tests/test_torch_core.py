@@ -219,7 +219,7 @@ def test_collection_plain_and_auto_agree_on_cpu():
 def test_collection_rejects_unknown_storage_and_plan_count():
     from repro_torch.storage import UnknownBackendError
     cfg = embedding.EmbeddingStageConfig(num_tables=2, rows=8, dim=4,
-                                         pooling=2, storage="pool")
+                                         pooling=2, storage="nope")
     with pytest.raises(UnknownBackendError, match="device"):
         embedding.EmbeddingBagCollection(cfg, device="cpu")
     with pytest.raises(ValueError, match="plans"):

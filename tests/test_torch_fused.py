@@ -211,3 +211,47 @@ def test_mean_epilogue_is_a_true_division():
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     with pytest.raises(ValueError, match="unknown mode"):
         fused.mean_epilogue(x, None, 3, "max")
+
+
+@pytest.mark.parametrize("mode,weighted", [("sum", False), ("sum", True),
+                                           ("mean", False)])
+def test_device_warm_cache_lookup_fused(mode, weighted):
+    """Cache-level fused lookup (mirrors tests/test_kernel_fused.py's case
+    of this name): hits from the payload, misses on the list, no counter
+    moves (read-only like probe()); slot map and lists equal the JAX
+    cache's, pooled values within the bound of its XLA route."""
+    from repro.ps.warm_cache import DeviceWarmCache as JCache
+    from repro_torch.ps.warm_cache import DeviceWarmCache, WarmCache
+    assert not WarmCache(4, 8).supports_fused
+    cache, jcache = DeviceWarmCache(capacity=8, dim=8, device="cpu"), \
+        JCache(capacity=8, dim=8)
+    assert cache.supports_fused
+    rng = np.random.default_rng(41)
+    table = rng.normal(size=(32, 8)).astype(np.float32)
+    resident = np.array([3, 5, 7, 11])
+    for c in (cache, jcache):
+        c.admit(resident, table[resident], np.ones(4, np.int64))
+    before = cache.stats()
+    rows = np.array([[3, 5, 9], [11, 20, 3]])
+    w = rng.random(rows.shape).astype(np.float32) if weighted else None
+    got = cache.lookup_fused(rows, w, mode=mode)
+    want = jcache.lookup_fused(rows, None if w is None else jnp.asarray(w),
+                               mode=mode, backend="xla")
+    assert cache.stats() == before == jcache.stats()
+    slots = cache.build_slot_map(rows)
+    np.testing.assert_array_equal(slots, jcache.build_slot_map(rows))
+    np.testing.assert_array_equal(got.miss_rows, [9, 20])
+    np.testing.assert_array_equal(got.miss_pos, [2, 4])
+    np.testing.assert_array_equal(got.miss_rows, want.miss_rows)
+    np.testing.assert_array_equal(got.miss_pos, want.miss_pos)
+    # the bound over the rows each bag adds: misses add a zero row
+    eff = torch.cat([cache.data, torch.zeros(1, 8)])
+    s = torch.from_numpy(slots)
+    idx = torch.where(s >= 0, s, torch.full_like(s, 8))
+    _assert_within(got.pooled, want.pooled, ref.summation_bound(
+        eff, idx, None if w is None else torch.from_numpy(w), mode))
+    masked = table[rows] * (1.0 if w is None else w[..., None])
+    masked[np.isin(rows, resident, invert=True)] = 0.0
+    if mode == "sum":            # the port's own dense pooling, bit for bit
+        assert torch.equal(got.pooled,
+                           torch.from_numpy(masked).sum(dim=1))

@@ -1,7 +1,10 @@
 """The port stands alone: nothing under src/repro_torch/, nor chip_smoke.py,
 imports JAX or the JAX package `repro`."""
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
@@ -34,9 +37,24 @@ def test_walk_sees_the_package():
             "serving/slo.py", "serving/config.py", "ps/tuning.py",
             "checkpoint/manager.py", "examples/serve_dlrm.py",
             "storage/placement.py", "storage/tenancy.py",
-            "storage/sharded.py", "serving/tenants.py"} <= ported
+            "storage/sharded.py", "serving/tenants.py",
+            "storage/pool/transport.py", "storage/pool/worker.py",
+            "storage/pool/pool.py"} <= ported
     sources = {f.name for f in (REPO / "src" / "repro_torch").rglob("*.cu")}
     assert {"embedding_bag.cu", "fused_lookup.cu"} <= sources
+
+
+def test_spawned_pool_worker_loads_neither_jax_nor_the_reference():
+    """The pool worker's import graph, as a spawned process builds it: the
+    worker module in a fresh interpreter loads no `jax` and no `repro`."""
+    code = ("import sys; import repro_torch.storage.pool.worker; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & "
+            f"{set(BANNED)!r}))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True,
+                         env={**os.environ,
+                              "PYTHONPATH": str(REPO / "src")}).stdout
+    assert out.strip() == "[]"
 
 
 def test_banned_import_is_caught(tmp_path):

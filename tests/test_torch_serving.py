@@ -278,14 +278,15 @@ def test_host_backed_backend_raises():
 
 
 def test_registry_misuse_is_loud():
-    assert storage.available() == ["device", "sharded", "tiered"]
+    assert storage.available() == ["device", "pool", "sharded", "tiered"]
     with pytest.raises(ValueError, match="already registered"):
         storage.register("device")(storage.DeviceStorage)
     with pytest.raises(TypeError, match="not an EmbeddingStorage"):
         storage.register("not_storage")(object)
     assert "not_storage" not in storage.available()
     with pytest.raises(storage.UnknownBackendError, match="sharded"):
-        storage.resolve("pool")
+        storage.resolve("nope")
+    assert storage.resolve("pool") is storage.PoolStorage
 
 
 def test_backend_stats_mirror_into_percentiles():
@@ -387,10 +388,21 @@ def test_serve_dlrm_example_sharded_and_tenants_on_the_cpu(argv, capsys):
         assert "served=  48" in out and "placement=" in out
 
 
-@pytest.mark.parametrize("argv,item", [("--storage pool", "item 10"),
-                                       ("--workers 2", "item 10")])
-def test_serve_dlrm_example_names_what_is_not_ported(argv, item, capsys):
+@pytest.mark.parametrize("argv", ["--storage pool --workers 2",
+                                  "--storage pool --tenants 2 --workers 2"])
+def test_serve_dlrm_example_names_what_is_not_ported(argv, capsys):
+    """The two cases that once named the unported pool (ROADMAP.md Queue 1
+    item 10) now serve on it: `--storage pool --workers 2` and tenants on
+    the pool, 48 queries on the CPU, ending with the workers' liveness
+    line."""
     from repro_torch.examples import serve_dlrm
-    with pytest.raises(SystemExit):
-        serve_dlrm.main(argv.split())
-    assert f"ROADMAP.md Queue 1 {item}" in capsys.readouterr().err
+    serve_dlrm.main(("--device cpu --tables 2 --rows 400 --pooling 4 "
+                     "--queries 48 --batch 8 --hot-rows 40 --warm-slots 40 "
+                     "--hotness med_hot " + argv).split())
+    out = capsys.readouterr().out
+    assert "pool workers 2/2 alive" in out
+    if "--tenants" in argv:
+        assert "tenants=2 backend=pool" in out
+        assert "shared: served=48 tenants=2" in out
+    else:
+        assert "served=  48" in out and "placement=" in out

@@ -41,7 +41,8 @@ from repro_torch.ps import PSConfig
 from repro_torch.serving import (ArbiterConfig, BatcherConfig,
                                  ServingSession, TenantManager, TenantSpec,
                                  configure)
-from repro_torch.storage import TenantStorage
+from repro_torch.storage import (PoolStorage, TenantStorage,
+                                 UnknownBackendError)
 from repro_torch.traffic import VirtualClock, make_traffic, replay_tenants
 
 ROWS, DIM, F = 400, 16, 4
@@ -170,8 +171,16 @@ def test_geometry_names_and_backend_checks():
         TenantManager([])
     with pytest.raises(ValueError, match="scheduling"):
         TenantManager([a[0]], scheduling="lifo")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        TenantManager([a[0]], backend="pool", ps_cfg=PSConfig(**PS))
+    with pytest.raises(UnknownBackendError, match="available"):
+        TenantManager([a[0]], backend="nope", ps_cfg=PSConfig(**PS))
+    # the process pool is a shared backend too (static tenancy)
+    with TenantManager([a[0]], backend="pool", ps_cfg=PSConfig(**PS),
+                       num_workers=1) as mgr:
+        assert isinstance(mgr.shared, PoolStorage)
+        assert list(mgr.shared.tenants) == ["a"]
+        with pytest.raises(RuntimeError, match="static"):
+            mgr.add_tenant(_tenant("c", 2, 5, 3)[0])
+    assert a[0].model.ebc.storage.shared is mgr.shared
     # a per-tenant arbiter is the manager's controller, not the tenant's
     spec = dataclasses.replace(a[0], controllers=configure(
         arbiter=ArbiterConfig()))

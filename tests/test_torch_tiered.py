@@ -70,7 +70,7 @@ def _twins(combine="sum", seed=0, **ps):
 
 
 def test_registry_build_close_and_capabilities():
-    assert storage.available() == ["device", "sharded", "tiered"]
+    assert storage.available() == ["device", "pool", "sharded", "tiered"]
     assert storage.resolve("tiered") is storage.TieredStorage
     model = DLRM(_cfg(), device="cpu")
     st = model.ebc.storage
