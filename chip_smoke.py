@@ -55,8 +55,11 @@ and the script exits non-zero:
                   over [hot; cache] (pooled half only); the bound; and a
                   breakdown of one tiered batch
   8b. replay_tiered  the tiered storage under a flash crowd: max_batch=128,
-                  the shrink rung down to 16, then the degraded rung, and
-                  back to level 0; degraded and exact batch times; no
+                  an SLO of 2x the median calibration batch, deadline
+                  admission at twice the SLO, a spike of 6x base, then
+                  base traffic; the shrink rung down to 16, then the
+                  degraded rung, and back to level 0; degraded and exact
+                  batch times; no
                   completion launch in a degraded batch; every exact
                   answer equal to the device kernel's bit for bit; one
                   degraded batch against the plain degraded pooling and
@@ -67,6 +70,22 @@ and the script exits non-zero:
                   the run each batch against the plain path over its
                   version's tables, tiered == sharded == device bit for
                   bit, every qid's version
+  8c'. train      training on the card. (a) train_dlrm's configuration
+                  (16 tables x 48,000 rows, D=128, pooling 20, batch 64)
+                  through TrainLoop: the step-0 loss on the kernel path
+                  against the plain path's, the table gradient from the
+                  kernel's backward against autograd through
+                  ref.embedding_bag_ref (summation bound), 60 steps
+                  straight through and 40 + a restored 20 under
+                  deterministic algorithms (the same losses bit for bit),
+                  one bag launch a forward, falling losses. (b)
+                  dlrm_production's widths at batch 2048 with 64 tables:
+                  10 steps timed with CUDA events, 5 more split into the
+                  bag kernel, MLPs, zeroing, scatter, Adagrad and SGD,
+                  their byte bounds, peak device memory
+  8c''. quickstart the port's quickstart on the card: the planner, then
+                  the pinned hot-first lookup (one bag launch) against the
+                  plain gather, max|err| < 1e-4
   8d. serve_sharded  full width, 64 tables: the `device` reference, then
                   the `sharded` backend on 4 shards (serve_tiered's tiers,
                   contiguous placement): 2 batches of 2048, logits ==
@@ -99,8 +118,9 @@ and the script exits non-zero:
 
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
 `--stop-after PHASE` ends the run after that phase (build, parity_fused,
-kernel_time, kernel_diag, replay_device, replay_tiered, serve_sharded,
-serve_pool, replay_tenants; a short first call for a new kernel); the
+kernel_time, kernel_diag, replay_device, replay_tiered, quickstart,
+serve_sharded, serve_pool, replay_tenants; a short first call for a new
+kernel); the
 result lines are then not printed. The pool phase's workers are spawned
 processes that import this file again as `__mp_main__`: its module level
 does no work.
@@ -111,6 +131,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -134,8 +155,13 @@ from repro_torch.configs.dlrm_production import CONFIG  # noqa: E402
 from repro_torch.core.access_patterns import (PAPER_UNIQUE_PCT,  # noqa: E402
                                               make_pattern)
 from repro_torch.core.embedding import _pool_rows_core, gather_rows  # noqa: E402
+from repro_torch.data import DLRMBatch  # noqa: E402
+from repro_torch.examples import quickstart, train_dlrm  # noqa: E402
 from repro_torch.kernels.embedding_bag import fused, kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.embedding_bag.grad import embedding_bag_backward  # noqa: E402
 from repro_torch.models import DLRM  # noqa: E402
+from repro_torch.models.dlrm import bce_with_logits  # noqa: E402
+from repro_torch.optim import rowwise_adagrad_update, sgdm_update  # noqa: E402
 from repro_torch.ps import PSConfig  # noqa: E402
 from repro_torch.serving import (ArbiterConfig, BatcherConfig,  # noqa: E402
                                  ServingSession, SLOConfig, TenantManager,
@@ -177,13 +203,31 @@ REPLAY_DEVICE_QUERIES = 8000
 REPLAY_DEVICE_SPIKE = 24            # batch times
 REPLAY_DEVICE_TARGET_X = 4          # x the median calibration batch
 REPLAY_DEVICE_DEADLINE_FRAC = 2.0   # shed past this x the target
-# replay_tiered: 128 down to 16, then the degraded rung; 2,000 queries
-# (300 MB beside the 64 GB cold tier); a 64-query SLO window, so the
-# windowed p99 forgets the spike within the base traffic that follows it
+# replay_tiered: 128 down to 16, then the degraded rung; a 64-query SLO
+# window, so the windowed p99 forgets the spike within the base traffic
+# that follows it. The trace is timed from the calibration batches, which
+# ran up to 1.17x the replay's own 128-query batches on the card: with an
+# SLO of 3x their p99 and a spike of 4x base, a calibration 1.17x slow
+# left the ladder short of the degraded rung. So the SLO is 2x the median
+# calibration batch, the spike 6x base (3x the calibrated service rate),
+# admission sheds only past twice the SLO (as in replay_device), and 12
+# batch times of base traffic follow the spike for the ladder to come
+# back down: tests/test_torch_smoke_replay.py rehearses it on a modelled
+# service time, reaching the degraded rung and level 0 again for
+# calibrations 0.7-2x the replay's batches. 2,752 queries, 413 MB beside
+# the 64 GB cold tier
 REPLAY_TIERED_BATCH, REPLAY_TIERED_MIN = 128, 16
-REPLAY_TIERED_QUERIES = 2000
 REPLAY_TIERED_WINDOW = 64
 REPLAY_TIERED_SPIKE = 5             # batch times
+REPLAY_TIERED_SPIKE_X = 6.0         # x base
+REPLAY_TIERED_AFTER = 12            # batch times of base after the spike
+REPLAY_TIERED_TARGET_X = 2          # x the median calibration batch
+REPLAY_TIERED_DEADLINE_FRAC = 2.0   # shed past this x the target
+# base traffic is half a full batch per batch time: one before the
+# spike, the spike, then REPLAY_TIERED_AFTER
+REPLAY_TIERED_QUERIES = REPLAY_TIERED_BATCH // 2 * (
+    1 + int(REPLAY_TIERED_SPIKE_X) * REPLAY_TIERED_SPIKE
+    + REPLAY_TIERED_AFTER)
 # update: full width with 8 tables (a full base snapshot of all 250 is
 # 64 GB on disk), batches of 512, versions published after steps 1, 3, 5
 UPDATE_TABLES, UPDATE_BATCH, UPDATE_STEPS = 8, 512, 8
@@ -206,6 +250,28 @@ SHARDED_REPLICATE = 0.085
 # rate, flash ~1,200 at 0.25x with a spike 4x its base for 8 batch times
 TENANT_TABLES, TENANT_SHARDS, TENANT_BATCH = 32, 2, 128
 TENANT_STEADY_QUERIES, TENANT_FLASH_QUERIES = 400, 1200
+# train: leg (a) runs train_dlrm's configuration through TrainLoop for 60
+# steps, once straight through and once stopped at step 40 and restored
+# from its checkpoint by a second incarnation (deterministic algorithms on:
+# the two must agree bit for bit); leg (b) trains dlrm_production's widths
+# at batch 2048 with the tables cut to serve_sharded's 64 (the dense table
+# gradient doubles the table bytes: 16.4 GB of tables and 16.4 GB of
+# gradient): 1 warm-up and 10 timed steps on batches sampled before the
+# clock starts, then 5 steps split into their parts. train_dlrm's rates
+# (SGD 0.01, Adagrad 0.05) diverge at these widths: pooling 150 and 2,080
+# interaction features make the logits large (step-0 loss 5.6), and at
+# those rates this leg's loss reached NaN by step 5 on an H100. At 1e-4
+# and 1e-3 it falls (the phase prints its losses). The rates move no
+# byte: the step's time does not depend on them
+TRAIN_STEPS, TRAIN_STOP_AT = 60, 40
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_WIDE_TABLES, TRAIN_WIDE_BATCH = 64, 2048
+TRAIN_WIDE_STEPS, TRAIN_WIDE_SPLIT_STEPS = 10, 5
+TRAIN_WIDE_LR_DENSE, TRAIN_WIDE_LR_EMB = 1e-4, 1e-3
+# `_split_step`'s parts that make up a step (zeroing alone is timed apart)
+STEP_PARTS = ("batch_to_device", "bag_kernel", "mlp_forward_backward",
+              "table_backward", "rowwise_adagrad", "sgd_momentum")
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
 # serve_pool: serve_sharded's shape on 4 worker processes (one shard each);
 # each worker holds torch and a CUDA context (host bytes, a guess kept
 # generous); /dev/shm keeps a GiB free beside the segment, and close()
@@ -1121,15 +1187,16 @@ class LookupTap:
 
 
 def flash_trace(n: int, t_b: float, batch: int, emb, dense_features: int,
-                pattern, seed: int, spike_len_batches: float):
+                pattern, seed: int, spike_len_batches: float,
+                spike_x: float = 4.0):
     """`n` queries on a `flash` profile: base 0.5x the measured service
-    rate (batch / t_b), a spike of 4x base from one batch time in, lasting
-    `spike_len_batches` batch times. Arrivals are the flash generator's;
-    indices come from the phase's med_hot `pattern` (one rank -> row map
-    for every table, as served batches are made), since the tiered tiers
-    were planned from it."""
+    rate (batch / t_b), a spike of `spike_x` x base from one batch time in,
+    lasting `spike_len_batches` batch times. Arrivals are the flash
+    generator's; indices come from the phase's med_hot `pattern` (one
+    rank -> row map for every table, as served batches are made), since
+    the tiered tiers were planned from it."""
     base = 0.5 * batch / t_b
-    gen = make_traffic("flash", base_qps=base, spike_qps=4.0 * base,
+    gen = make_traffic("flash", base_qps=base, spike_qps=spike_x * base,
                        spike_start_s=t_b, spike_len_s=spike_len_batches * t_b,
                        num_tables=emb.num_tables, rows=emb.rows,
                        pooling=emb.pooling, dense_features=dense_features,
@@ -1329,15 +1396,39 @@ def compact_bag_pooled(host_tables, idx: np.ndarray, opts) -> torch.Tensor:
     return out
 
 
+def replay_tiered_scenario(model, pattern, lat: np.ndarray):
+    """The session and flash trace replay_tiered replays on `model`, from
+    the service seconds `lat` of its calibration batches: returns
+    (session, queries, trace profile, SLO target in ms)."""
+    emb, F = model.cfg.embedding, model.cfg.dense_features
+    queries, profile = flash_trace(REPLAY_TIERED_QUERIES, float(lat.mean()),
+                                   REPLAY_TIERED_BATCH, emb, F, pattern,
+                                   seed=22,
+                                   spike_len_batches=REPLAY_TIERED_SPIKE,
+                                   spike_x=REPLAY_TIERED_SPIKE_X)
+    target_ms = REPLAY_TIERED_TARGET_X * float(np.median(lat)) * 1e3
+    sess = ServingSession(
+        model, batcher=BatcherConfig(max_batch=REPLAY_TIERED_BATCH,
+                                     max_wait_s=0.002, pad_to_max=False),
+        slo=SLOConfig(target_p99_ms=target_ms, min_batch=REPLAY_TIERED_MIN,
+                      check_every_batches=2,
+                      window_queries=REPLAY_TIERED_WINDOW,
+                      shed_deadline_frac=REPLAY_TIERED_DEADLINE_FRAC),
+        clock=VirtualClock())
+    return sess, queries, profile, target_ms
+
+
 def phase_replay_tiered(tiered, pattern, device_opts, src) -> dict:
     """The tiered storage serve_tiered built, under a flash crowd: service
-    time measured at max_batch=128, an SLO of 3x its p99 with the shrink
-    rung down to 16 and the degraded rung above it. Batches are not padded
+    time measured at max_batch=128, an SLO of 2x its median with the shrink
+    rung down to 16 and the degraded rung above it, the deadline admission
+    at twice the SLO, and a spike of 6x base followed by 12 batch times of
+    base traffic. Batches are not padded
     (a padded row costs a host gather on `tiered`). Every answer that is
     not degraded is held to the `device` kernel's bit for bit (the law);
     one degraded batch is held to the plain degraded pooling (misses as
     zeros), and its L2 delta to a recompute from the cold rows."""
-    emb, F = tiered.cfg.embedding, tiered.cfg.dense_features
+    emb = tiered.cfg.embedding
     storage = tiered.ebc.storage
     cold = storage.ps.cold.tables
     dense, idx = src
@@ -1345,19 +1436,10 @@ def phase_replay_tiered(tiered, pattern, device_opts, src) -> dict:
     lat = calibrate_service(tiered, REPLAY_TIERED_BATCH, dense[:n_cal],
                             idx[:n_cal])
     p99_s, t_b = float(np.percentile(lat, 99)), float(lat.mean())
-    queries, profile = flash_trace(REPLAY_TIERED_QUERIES, t_b,
-                                   REPLAY_TIERED_BATCH, emb, F, pattern,
-                                   seed=22,
-                                   spike_len_batches=REPLAY_TIERED_SPIKE)
+    median_s = float(np.median(lat))
+    sess, queries, profile, target_ms = replay_tiered_scenario(
+        tiered, pattern, lat)
     rss = {"trace": host_rss_bytes()}
-    target_ms = 3 * p99_s * 1e3
-    sess = ServingSession(
-        tiered, batcher=BatcherConfig(max_batch=REPLAY_TIERED_BATCH,
-                                      max_wait_s=0.002, pad_to_max=False),
-        slo=SLOConfig(target_p99_ms=target_ms, min_batch=REPLAY_TIERED_MIN,
-                      check_every_batches=2,
-                      window_queries=REPLAY_TIERED_WINDOW),
-        clock=VirtualClock())
     tap = LookupTap(storage)
     law = {"batches": 0, "queries": 0, "seconds": 0.0}
     failed = []
@@ -1443,7 +1525,9 @@ def phase_replay_tiered(tiered, pattern, device_opts, src) -> dict:
         max_batch=REPLAY_TIERED_BATCH, min_batch=REPLAY_TIERED_MIN,
         window_queries=REPLAY_TIERED_WINDOW, pad_to_max=False,
         calibration_batch_ms=(lat * 1e3).tolist(),
-        service_p99_ms=p99_s * 1e3, service_rate_qps=REPLAY_TIERED_BATCH / t_b,
+        service_p99_ms=p99_s * 1e3, service_median_ms=median_s * 1e3,
+        service_rate_qps=REPLAY_TIERED_BATCH / t_b,
+        deadline_ms=target_ms * REPLAY_TIERED_DEADLINE_FRAC,
         trace={"kind": "flash", "queries": len(queries),
                "base_qps": profile.base_qps, "spike_qps": profile.spike_qps},
         **out, law={**law, "equal": True},
@@ -1640,6 +1724,306 @@ def phase_update(cfg, pattern) -> dict:
               "stream_bytes": disk_used},
         serve_s=serve_s, host_peak_rss_bytes=host_peak_rss_bytes(),
         failed=failed)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """`torch.use_deterministic_algorithms(True)` for the block: an op
+    without a deterministic implementation raises instead of running."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def _train_step_zero_checks(failed: list) -> dict:
+    """train_dlrm's model at step 0 on its first batch: the pooled bags
+    and the loss on the kernel path against the plain path's (the bags
+    within the summation bound), and the kernel path's table
+    gradient (the Function's backward, `embedding_bag_backward`) against
+    `torch.autograd.grad` through `ref.embedding_bag_ref` for the same
+    pooled gradient, within the summation bound 2·eps·Σ|g|."""
+    cfg = train_dlrm.CONFIG
+    emb = cfg.embedding
+    model = DLRM(cfg, device="cuda", seed=train_dlrm.SEED)
+    dense, idx, labels = train_dlrm.batch_tensors(
+        train_dlrm.make_stream().next_batch(), "cuda")
+    tables = model.ebc.tables.requires_grad_(True)
+    pooled_k = model.ebc(idx)
+    loss_k = bce_with_logits(model.forward_from_pooled(dense, pooled_k),
+                             labels)
+    grad_k, grad_pooled = torch.autograd.grad(loss_k, [tables, pooled_k])
+    with torch.no_grad():
+        pooled_p = _pool_rows_core(gather_rows(tables, idx), None,
+                                   emb.combine)
+        loss_p = bce_with_logits(model.forward_from_pooled(dense, pooled_p),
+                                 labels)
+    pooled_bound = torch.stack([ref.summation_bound(
+        tables[t].detach(), idx[:, t], None, emb.combine)
+        for t in range(emb.num_tables)], dim=1)
+    pooled_cmp = compare(pooled_k.detach(), pooled_p, pooled_bound,
+                         "train pooled")
+    leaf = tables.detach().clone().requires_grad_(True)
+    pooled_r = torch.stack([ref.embedding_bag_ref(leaf[t], idx[:, t], None,
+                                                  emb.combine)
+                            for t in range(emb.num_tables)], dim=1)
+    grad_r, = torch.autograd.grad(pooled_r, leaf, grad_outputs=grad_pooled)
+    shape = tuple(tables.shape)
+    bound = 2 * ref.F32_EPS * embedding_bag_backward(
+        grad_pooled.abs(), idx, None, emb.combine, shape)
+    grad_cmp = compare(grad_k, grad_r, bound, "train table gradient")
+    # the scatter's bits on a second run, deterministic algorithms off
+    again = embedding_bag_backward(grad_pooled, idx, None, emb.combine,
+                                   shape)
+    repeat_equal = bool(torch.equal(again, grad_k))
+    expect(failed, repeat_equal,
+           "the table gradient differs between two runs of the backward")
+    loss_k, loss_p = float(loss_k.detach()), float(loss_p)
+    expect(failed, abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p),
+           f"step-0 loss {loss_k!r} on the kernel path, {loss_p!r} plain")
+    return {"loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_rtol": TRAIN_LOSS_RTOL,
+            "pooled_max_abs_err": pooled_cmp["max_abs_err"],
+            "pooled_max_err_over_bound": pooled_cmp["max_err_over_bound"],
+            "grad_max_abs_err": grad_cmp["max_abs_err"],
+            "grad_max_err_over_bound": grad_cmp["max_err_over_bound"],
+            "grad_equal_bits": bool(torch.equal(grad_k, grad_r)),
+            "grad_rows_touched": int((grad_k.abs().sum(-1) > 0).sum()),
+            "backward_repeat_equal_bits": repeat_equal,
+            "grad_tolerance": "2*eps_f32*sum|g| (summation bound)"}
+
+
+def _train_runs(failed: list) -> dict:
+    """train_dlrm's `main` three times under deterministic algorithms: 60
+    steps straight through; 40 steps (a completion checkpoint at 40); and
+    a second incarnation over the same directory that restores step 40
+    and runs 40-59. Launches are counted per run; each must equal its
+    forwards."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    runs, launches, seconds = {}, {}, {}
+    legs = (("full", TRAIN_STEPS, "full"), ("stopped", TRAIN_STOP_AT, "restart"),
+            ("resumed", TRAIN_STEPS, "restart"))
+    with deterministic_algorithms():
+        for name, steps, ckpt in legs:
+            t0 = time.perf_counter()
+            kernel.LAUNCHES = 0
+            runs[name] = train_dlrm.main(
+                ["--steps", str(steps), "--device", "cuda",
+                 "--ckpt", os.path.join(TRAIN_DIR, ckpt)])
+            launches[name] = kernel.LAUNCHES
+            seconds[name] = time.perf_counter() - t0
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    losses = {k: [h.loss for h in r.history] for k, r in runs.items()}
+    steps = {k: [h.step for h in r.history] for k, r in runs.items()}
+    for name, _, _ in legs:
+        expect(failed, launches[name] == len(steps[name]),
+               f"train {name}: {launches[name]} bag launches over "
+               f"{len(steps[name])} forwards")
+    full = losses["full"]
+    first, last = float(np.mean(full[:10])), float(np.mean(full[-10:]))
+    expect(failed, bool(np.isfinite(full).all()), "non-finite train loss")
+    expect(failed, last < first,
+           f"train loss did not fall: first 10 {first}, last 10 {last}")
+    expect(failed, steps["resumed"] == list(range(TRAIN_STOP_AT,
+                                                  TRAIN_STEPS)),
+           f"the restored run took steps {steps['resumed']}")
+    restart_equal = (losses["resumed"] == full[TRAIN_STOP_AT:]
+                     and losses["stopped"] == full[:TRAIN_STOP_AT])
+    expect(failed, restart_equal,
+           "losses after the restore differ from the uninterrupted run's")
+    return {"losses": full, "first10_mean": first, "last10_mean": last,
+            "launches": launches, "forwards": {k: len(v)
+                                               for k, v in steps.items()},
+            "restart_equal_bits": restart_equal,
+            "resumed_losses": losses["resumed"],
+            "stragglers": sum(h.straggler for h in runs["full"].history),
+            "step_wall_ms_p50": float(np.median(
+                [h.wall_s for h in runs["full"].history]) * 1e3),
+            "deterministic_algorithms": True, "run_seconds": seconds}
+
+
+def _split_step(model, state, batch) -> dict:
+    """One train step in its parts, each between two CUDA events: the batch
+    to the card, the bag kernel, the MLPs forward and backward (with the
+    pooled gradient), the table backward (`embedding_bag_backward`: zero
+    the gradient, scatter into it), row-wise Adagrad, SGD momentum. The
+    same arithmetic as `train_dlrm.make_train_step` at the wide leg's
+    rates. Zeroing a gradient is also timed alone, before the step's
+    parts: `scatter` is the table backward less that."""
+    parts = ("zero_table_grad", "batch_to_device", "bag_kernel",
+             "mlp_forward_backward", "table_backward", "rowwise_adagrad",
+             "sgd_momentum")
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    params = state["params"]
+    names = [(t, k) for t in ("bottom", "top") for k in params[t]]
+    tables = params["embedding"]["tables"]
+    emb = model.cfg.embedding
+    events[0].record()
+    torch.zeros_like(tables)
+    events[1].record()
+    dense, idx, labels = train_dlrm.batch_tensors(batch, "cuda")
+    events[2].record()
+    with torch.no_grad():
+        pooled = model.ebc(idx)
+    events[3].record()
+    pooled.requires_grad_(True)
+    loss = bce_with_logits(model.forward_from_pooled(dense, pooled), labels)
+    grads = torch.autograd.grad(loss, [params[t][k] for t, k in names]
+                                + [pooled])
+    events[4].record()
+    grad = embedding_bag_backward(grads[-1], model.ebc.remap_indices(idx),
+                                  None, emb.combine, tuple(tables.shape))
+    events[5].record()
+    rowwise_adagrad_update(params["embedding"], {"tables": grad},
+                           state["opt_emb"], lr=TRAIN_WIDE_LR_EMB)
+    events[6].record()
+    g_dense = {"bottom": {}, "top": {}}
+    for (t, k), g in zip(names, grads):
+        g_dense[t][k] = g
+    sgdm_update({"bottom": params["bottom"], "top": params["top"]}, g_dense,
+                state["opt_dense"], lr=TRAIN_WIDE_LR_DENSE)
+    events[7].record()
+    torch.cuda.synchronize()
+    ms = {p: events[i].elapsed_time(events[i + 1])
+          for i, p in enumerate(parts)}
+    ms["scatter"] = ms["table_backward"] - ms["zero_table_grad"]
+    return ms
+
+
+def _train_wide(cfg, pattern, failed: list) -> dict:
+    """dlrm_production's widths at batch 2048, tables cut to 64: the
+    train step timed with CUDA events, split into its parts, the bounds of
+    the parts that move the dense table gradient, and peak memory."""
+    gc.collect()                # what the earlier phases hold on the card
+    torch.cuda.empty_cache()
+    emb = dataclasses.replace(cfg.embedding, num_tables=TRAIN_WIDE_TABLES)
+    B, L, D, R = TRAIN_WIDE_BATCH, emb.pooling, emb.dim, emb.rows
+    reduced = [{"num_tables": [cfg.embedding.num_tables, TRAIN_WIDE_TABLES],
+                "reason": "the dense table gradient doubles the table "
+                          "bytes; serve_sharded's table count"}]
+    free, _ = torch.cuda.mem_get_info()
+    # a table, its gradient and Adagrad's squared gradient, plus the
+    # scatter's values for its lookups
+    per_table = (3 * R + B * L) * D * emb.torch_dtype.itemsize
+    fit = int((free - HEADROOM_BYTES) // per_table)
+    if fit < TRAIN_WIDE_TABLES:
+        reduced.append({"num_tables": [TRAIN_WIDE_TABLES, fit],
+                        "reason": f"{free} bytes free on the card"})
+        emb = dataclasses.replace(emb, num_tables=fit)
+    T = emb.num_tables
+    cfg_w = dataclasses.replace(cfg, embedding=emb)
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(8)
+    batches = [DLRMBatch(
+        dense=rng.standard_normal((B, cfg.dense_features), dtype=np.float32),
+        indices=sample_indices(pattern, B, T, L, seed=80 + s),
+        labels=(rng.random(B) < 0.2).astype(np.float32))
+        for s in range(1 + TRAIN_WIDE_STEPS)]
+    sample_s = time.perf_counter() - t1
+    torch.cuda.reset_peak_memory_stats()
+    model = DLRM(cfg_w, device="cuda", seed=7)
+    state = train_dlrm.train_state(model)
+    step = train_dlrm.make_train_step(model, lr_dense=TRAIN_WIDE_LR_DENSE,
+                                      lr_emb=TRAIN_WIDE_LR_EMB)
+    kernel.LAUNCHES = 0
+    state, loss = step(state, batches[0])            # warm-up
+    losses, step_ms = [float(loss)], []
+    for batch in batches[1:]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    launches = kernel.LAUNCHES
+    expect(failed, launches == len(batches),
+           f"train wide: {launches} bag launches over {len(batches)} steps")
+    expect(failed, bool(np.isfinite(losses).all()), "non-finite wide loss")
+    splits = [_split_step(model, state, batches[1 + i % TRAIN_WIDE_STEPS])
+              for i in range(TRAIN_WIDE_SPLIT_STEPS)]
+    split_p50 = {k: float(np.median([s[k] for s in splits]))
+                 for k in splits[0]}
+    peak = torch.cuda.max_memory_allocated()
+    # bounds from this run's inputs: each input read once, each output
+    # written once (distinct rows: what the bag kernel and a sparse
+    # scatter must move)
+    idx = torch.from_numpy(batches[1].indices).cuda()
+    distinct = sum(int(torch.unique(idx[:, t]).numel()) for t in range(T))
+    del idx
+    table_bytes = T * R * D * 4
+    row_bytes = D * 4
+    moved = {
+        "bag_kernel": distinct * row_bytes + B * T * L * 4 + B * T * D * 4,
+        "zero_table_grad": table_bytes,
+        "scatter": B * T * D * 4 + B * T * L * 4 + distinct * row_bytes,
+        # read the gradient and the tables, write the tables; read and
+        # write one accumulator a row
+        "rowwise_adagrad": 3 * table_bytes + 2 * T * R * 4,
+    }
+    bound_ms = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in moved.items()}
+    del model, state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": "dlrm_production", "tables": T, "rows": R, "dim": D,
+            "pooling": L, "batch": B, "reduced": reduced,
+            "steps": TRAIN_WIDE_STEPS, "warmup_steps": 1,
+            "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),
+            "split_steps": TRAIN_WIDE_SPLIT_STEPS,
+            "split_p50_ms": split_p50,
+            "split_sum_ms": float(sum(split_p50[p] for p in STEP_PARTS)),
+            "splits_ms": splits, "bytes_moved": moved,
+            "bound_ms": bound_ms, "distinct_rows": distinct,
+            "table_bytes": table_bytes, "peak_memory_bytes": peak,
+            "launches": launches, "forwards": len(losses), "losses": losses,
+            "lr_dense": TRAIN_WIDE_LR_DENSE, "lr_emb": TRAIN_WIDE_LR_EMB,
+            "sample_s": sample_s}
+
+
+def phase_train(cfg, pattern) -> dict:
+    """Training on the card: leg (a), train_dlrm through TrainLoop with
+    its step-0 checks and the restart; leg (b), dlrm_production's widths
+    at batch 2048 (`_train_wide`)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    failed = []
+    t0 = time.perf_counter()
+    checks = _train_step_zero_checks(failed)
+    runs = _train_runs(failed)
+    first, plain = runs["losses"][0], checks["loss_plain"]
+    expect(failed, abs(first - plain) <= TRAIN_LOSS_RTOL * abs(plain),
+           f"TrainLoop's first loss {first!r}, the plain path's {plain!r}")
+    runs["first_loss_equals_step0_kernel_bits"] = (
+        first == checks["loss_kernel"])
+    small_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide = _train_wide(cfg, pattern, failed)
+    emb = train_dlrm.CONFIG.embedding
+    return {"small": {"config": "train_dlrm", "tables": emb.num_tables,
+                      "rows": emb.rows, "dim": emb.dim,
+                      "pooling": emb.pooling, "batch": train_dlrm.BATCH,
+                      "steps": TRAIN_STEPS, "stop_at": TRAIN_STOP_AT,
+                      **checks, **runs, "seconds": small_s},
+            "wide": {**wide, "seconds": time.perf_counter() - t0},
+            "failed": failed}
+
+
+def phase_quickstart() -> dict:
+    """The port's quickstart on the card: the planner, then the pinned,
+    hot-first collection (the bag kernel with its hot operand) against the
+    plain gather; one launch."""
+    kernel.LAUNCHES = 0
+    out = quickstart.main(["--device", "cuda"])
+    launches = kernel.LAUNCHES
+    check(launches == 1, f"quickstart: {launches} bag launches, not 1")
+    check(out["max_abs_err"] < quickstart.MAX_ERR,
+          f"quickstart: max|err| {out['max_abs_err']}")
+    return {"planner": dataclasses.asdict(out["report"]),
+            "max_abs_err": out["max_abs_err"], "tolerance": quickstart.MAX_ERR,
+            "launches": launches}
 
 
 def tier_ps_config(rows: int) -> PSConfig:
@@ -2455,6 +2839,9 @@ def main() -> int:
               "runs only on a CUDA device", file=sys.stderr)
         return 2
 
+    # cuBLAS's deterministic workspace, read when the train phase turns
+    # deterministic algorithms on; set before the first matmul
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_all = time.perf_counter()
     # 1. device
     t0 = time.perf_counter()
@@ -2686,6 +3073,19 @@ def main() -> int:
     emit("update", **update, seconds=time.perf_counter() - t0)
     check(not update["failed"], f"update: {update['failed']}")
 
+    # 8c'. train: train_dlrm with a restart, then dlrm_production's widths
+    t0 = time.perf_counter()
+    train = phase_train(cfg, pattern)
+    emit("train", **train, seconds=time.perf_counter() - t0)
+    check(not train["failed"], f"train: {train['failed']}")
+
+    # 8c''. quickstart: the planner and the pinned hot-first lookup
+    t0 = time.perf_counter()
+    quick = phase_quickstart()
+    emit("quickstart", **quick, seconds=time.perf_counter() - t0)
+    if stop("quickstart"):
+        return 0
+
     # 8d. serve_sharded: 4 shards, the law, a live migration
     t0 = time.perf_counter()
     sharded = phase_serve_sharded(cfg, pattern)
@@ -2737,6 +3137,9 @@ def main() -> int:
             launches_update_device=update["launches"]["device"]["bag"],
             launches_update_tiered=update["launches"]["tiered"]["bag"],
             launches_update_sharded=update["launches"]["sharded"]["bag"],
+            launches_train=train["small"]["launches"],
+            launches_train_wide=train["wide"]["launches"],
+            launches_quickstart=quick["launches"],
             launches_sharded=sharded["before_migration"]["bag_launches"],
             launches_sharded_migrated=sharded["after_migration"][
                 "bag_launches"],

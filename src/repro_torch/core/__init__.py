@@ -8,3 +8,4 @@ from repro_torch.core.hot_cache import (HotPlan, build_plan, identity_plan,
                                         l2_budget_rows, plan_from_trace,
                                         profile_counts)
 from repro_torch.core.update import UpdateTxn, require_open
+from repro_torch.core.plan import EmbeddingPlanReport, plan_embedding_stage

@@ -13,6 +13,13 @@ delegates to `self.storage.lookup(...)`. For a host-backed backend
 (`capabilities().device_resident` False) the collection keeps `tables` on
 the host, where they become the backend's cold tier as they are, so the
 host holds the one copy; the pooled output still lands on `device`.
+
+Training: `tables.requires_grad_(True)` makes the buffer a leaf that
+autograd differentiates through a `device` lookup (the kernel's backward
+on the card, the plain gather's on the CPU); it keeps its state-dict key
+`ebc.tables`. The host-backed backends cannot differentiate their
+lookups (nor can the TPU path's): a lookup through them that needs a
+gradient raises.
 """
 from __future__ import annotations
 
@@ -170,5 +177,11 @@ class EmbeddingBagCollection(nn.Module):
         `apply`; `nn.Module.apply` keeps its own meaning here).
 
         Thin delegation into the bound storage backend."""
+        if (self.tables.requires_grad and torch.is_grad_enabled()
+                and not self.storage.capabilities().device_resident):
+            raise RuntimeError(
+                f"storage {self.cfg.storage!r} cannot differentiate its "
+                f"host lookup, and the tables require a gradient: train on "
+                f"storage='device', or look up under torch.no_grad()")
         return self.storage.lookup(indices, weights,
                                    pre_remapped=pre_remapped)

@@ -1,15 +1,26 @@
-"""Tier-capacity planning for the tiered parameter server (paper §VII's
-profiling recipe applied to the memory hierarchy).
+"""Static profiling framework (paper §VII) — decide which knobs to apply —
+and tier-capacity planning for the tiered parameter server (the same
+recipe applied to the memory hierarchy).
 
-The port holds the parts of `repro/core/plan.py` that the tiered backend
-and the serving controllers use: `TierCapacityPlan`,
-`plan_tier_capacities`, `AdmissionPlan` and `plan_admission` (numpy,
-copied), and `estimate_device_budget`, which reads the card's free memory
-from `torch.cuda.mem_get_info` where the TPU path read the runtime's
-memory stats; and the shard planners `plan_shard_placement` and
-`plan_shard_migration`, thin delegations into `storage.placement`. The
-embedding-stage planner comes with the `embedding_stage` sweep (ROADMAP.md
-Queue 1 item 7).
+The paper's recipe in H100 terms:
+ (i)   memory-latency bound?   -> hotness metrics + arithmetic intensity
+ (ii)  occupancy maximal?      -> bags (warps) per thread block
+ (iii) OptMT                   -> ring depth and bags per block within
+                                  shared memory
+ (iv)  still latency bound?    -> enable prefetching (ring depth)
+ (v)   high-reuse region?      -> pin top-K rows in L2 (coverage threshold)
+ (vi)  bandwidth headroom?     -> deepen the ring
+ (vii) combine both
+
+The port holds `repro/core/plan.py` whole but for its TPU budgets:
+`EmbeddingPlanReport` and `plan_embedding_stage` size the pinned rows
+against the H100's L2 (`hot_cache.l2_budget_rows`) where the TPU path
+sized them against VMEM; `TierCapacityPlan`, `plan_tier_capacities`,
+`AdmissionPlan` and `plan_admission` (numpy, copied);
+`estimate_device_budget`, which reads the card's free memory from
+`torch.cuda.mem_get_info` where the TPU path read the runtime's memory
+stats; and the shard planners `plan_shard_placement` and
+`plan_shard_migration`, thin delegations into `storage.placement`.
 """
 from __future__ import annotations
 
@@ -17,6 +28,84 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.core import access_patterns as ap
+from repro_torch.core.hot_cache import l2_budget_rows
+from repro_torch.kernels.embedding_bag.kernel import (RING_DEPTHS,
+                                                      LaunchGeometry)
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbeddingPlanReport:
+    """The kernel knobs `plan_embedding_stage` picked for one table.
+
+    The fields the TPU path's report shares keep their names and rules.
+    Its `vmem_bytes` (pinned rows, pipeline and output blocks in one
+    core's VMEM) has no counterpart on the card, where those live in
+    different memories: `l2_pinned_bytes` is what the pinned rows take of
+    the L2 budget, and `shared_memory_bytes` what one thread block of the
+    kernel takes at this ring depth and bags per block."""
+
+    hotness_unique_pct: float
+    hot_coverage_at_k: float      # fraction of accesses served by pinned rows
+    pinned_rows: int
+    prefetch_distance: int
+    batch_block: int
+    l2_pinned_bytes: int
+    shared_memory_bytes: int
+    latency_bound: bool
+    notes: tuple[str, ...]
+
+
+def plan_embedding_stage(trace: np.ndarray, num_rows: int, dim: int,
+                         itemsize: int = 4,
+                         target_coverage: float = 0.5) -> EmbeddingPlanReport:
+    """Given an offline index trace for one table, pick the kernel knobs.
+
+    The rules are the TPU path's: the smallest K whose rows cover
+    `target_coverage` of the accesses, dropped below 10 % coverage; a ring
+    of ceil(16 · cold fraction) rows. The budgets are the H100's: K is
+    clamped to the rows the L2 budget holds (`l2_budget_rows`), and the
+    distance to the ring depths the kernel takes (`RING_DEPTHS`; the kernel
+    itself rounds it down to a power of two).
+    """
+    notes = []
+    uniq = ap.unique_access_pct(trace, num_rows)
+    counts = np.bincount(trace.reshape(-1), minlength=num_rows)
+    order = np.argsort(-counts)
+    csum = np.cumsum(counts[order]) / max(1, trace.size)
+
+    # (i) latency bound: gather of one row (dim*itemsize bytes) per 2*dim flops
+    # -> arithmetic intensity ~ 2/itemsize flop/byte << ridge; always true.
+    latency_bound = True
+
+    # (v) pinning: smallest K reaching target coverage, clamped to L2 budget.
+    budget_rows = l2_budget_rows(dim, itemsize)
+    k_cov = int(np.searchsorted(csum, target_coverage) + 1)
+    if csum[-1] < target_coverage:
+        k_cov = num_rows
+    pinned = int(min(k_cov, budget_rows, num_rows))
+    coverage = float(csum[pinned - 1]) if pinned > 0 else 0.0
+    if coverage < 0.10:
+        notes.append("low reuse: pinning covers <10% of accesses; disabled")
+        pinned, coverage = 0, 0.0
+
+    # (iii/iv/vi) ring: deeper when the cold fraction is high. A row wider
+    # than a ring slot is pooled in passes over the same ring, so the width
+    # bounds nothing here (the TPU path capped its row buffer at 1 MiB).
+    cold_frac = 1.0 - coverage
+    distance = int(np.clip(np.ceil(16 * cold_frac), *RING_DEPTHS))
+
+    batch_block = 8
+    geometry = LaunchGeometry(prefetch_distance=distance,
+                              batch_block=batch_block)
+    return EmbeddingPlanReport(
+        hotness_unique_pct=uniq, hot_coverage_at_k=coverage,
+        pinned_rows=pinned, prefetch_distance=distance,
+        batch_block=batch_block,
+        l2_pinned_bytes=pinned * dim * itemsize,
+        shared_memory_bytes=geometry.shared_bytes(dim, itemsize),
+        latency_bound=latency_bound, notes=tuple(notes))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -105,3 +105,15 @@ class DLRM(nn.Module):
     def embedding_only(self, sparse_indices: torch.Tensor) -> torch.Tensor:
         """Embedding stage in isolation (paper's embedding-only latency)."""
         return self.ebc(sparse_indices)
+
+    def loss(self, dense: torch.Tensor, sparse_indices: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+        """Mean binary cross-entropy of the logits against `labels` [B]."""
+        return bce_with_logits(self(dense, sparse_indices), labels)
+
+
+def bce_with_logits(logit: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """mean(max(z, 0) - z·y + log1p(exp(-|z|))): the TPU path's stable
+    formula, term for term."""
+    return torch.mean(torch.clamp_min(logit, 0) - logit * labels
+                      + torch.log1p(torch.exp(-torch.abs(logit))))

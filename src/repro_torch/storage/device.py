@@ -4,7 +4,11 @@
 embedding-bag kernel over every table when the tables lie on a CUDA
 device, or the plain gather + `_pool_rows_core` when they lie on the CPU.
 Tables on the card always launch the kernel (or raise): nothing there
-selects the plain version.
+selects the plain version. The launch goes through
+`kernels.embedding_bag.EmbeddingBagFunction`, so tables that require a
+gradient (training) get one from its backward; a lookup that asks for no
+gradient launches the same kernel with the same bits. On the CPU autograd
+differentiates the plain gather itself.
 
 No staging, no refresh: with everything resident there is nothing to
 overlap or re-pin at the storage level (the paper's in-kernel prefetch and
@@ -17,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.update import UpdateTxn, require_open
-from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+from repro_torch.kernels.embedding_bag import EmbeddingBagFunction
 from repro_torch.storage.base import EmbeddingStorage, StorageCapabilities
 from repro_torch.storage.registry import register
 from repro_torch.utils import to_tensor
@@ -30,7 +34,8 @@ class DeviceStorage(EmbeddingStorage):
 
     Online updates therefore write the bound collection's tables: on
     `commit_update` the changed rows are written IN PLACE into
-    `ebc.tables` (`index_put_`), so the engine, which reads the module's
+    `ebc.tables` (`index_put_`, under `torch.no_grad()`, so tables being
+    trained take updates too), so the engine, which reads the module's
     tensors on every call, sees them on the NEXT forward. Logical row ids
     route through the EBC's hot-first remap, since the stored tables are
     physically permuted when `pinned_rows > 0`."""
@@ -73,8 +78,9 @@ class DeviceStorage(EmbeddingStorage):
             phys = (rows_t if self.ebc._remap is None
                     else self.ebc._remap[t][rows_t].long())
             # in place: the tables buffer is the one the engine reads
-            tables[t].index_put_(
-                (phys,), to_tensor(vals, tables.dtype).to(tables.device))
+            with torch.no_grad():
+                tables[t].index_put_(
+                    (phys,), to_tensor(vals, tables.dtype).to(tables.device))
             applied += int(rows.size)
         self._version = txn.version
         self._update_txn = None
@@ -100,7 +106,7 @@ class DeviceStorage(EmbeddingStorage):
             return _pool_rows_core(gather_rows(tables, indices), weights,
                                    cfg.combine)
         # pad tables are never looked up: the grid covers indices' T only
-        return embedding_bag_cuda(
+        return EmbeddingBagFunction.apply(
             tables, indices.to(torch.int32).contiguous(),
             None if weights is None
             else weights.to(torch.float32).contiguous(),

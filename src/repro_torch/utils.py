@@ -1,8 +1,25 @@
-"""Small helpers shared by the port."""
+"""Small helpers shared by the port: devices and dtypes, logging, timing,
+JSON files."""
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import logging
+import os
+import time
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
+
+logger = logging.getLogger("repro_torch")
+if not logger.handlers:  # pragma: no cover - import-time wiring
+    _h = logging.StreamHandler()
+    _h.setFormatter(logging.Formatter(
+        "[%(asctime)s %(name)s %(levelname)s] %(message)s"))
+    logger.addHandler(_h)
+    logger.setLevel(os.environ.get("REPRO_LOGLEVEL", "INFO"))
 
 
 def resolve_device(device) -> torch.device:
@@ -68,8 +85,83 @@ def host_array(x) -> tuple[np.ndarray, str]:
 
 def to_tensor(arr: np.ndarray, dtype) -> torch.Tensor:
     """A CPU tensor of `dtype` over a host-form array (no copy when `arr`
-    is contiguous); a 2-byte void array is read as bfloat16 bits."""
-    arr = np.ascontiguousarray(arr)
+    is contiguous); a 2-byte void array is read as bfloat16 bits. A 0-d
+    array stays 0-d (`np.ascontiguousarray` alone returns it as 1-d)."""
+    arr = np.asarray(arr)
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if dtype_name(dtype) == BF16:
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+# -- timing ----------------------------------------------------------------------
+@contextlib.contextmanager
+def timed(label: str, sink: dict | None = None) -> Iterator[None]:
+    """Host seconds of the block into `sink[label]` (and the debug log).
+    The host clock sees only what the block waits for: synchronise the
+    card inside the block to time its work."""
+    t0 = time.perf_counter()
+    yield
+    dt = time.perf_counter() - t0
+    if sink is not None:
+        sink[label] = dt
+    logger.debug("%s took %.3fs", label, dt)
+
+
+def timeit_median(fn: Callable[[], Any], iters: int = 5,
+                  warmup: int = 2) -> float:
+    """Median seconds of `fn()`. Where the card is in use (CUDA
+    initialised), every call is bracketed by `torch.cuda.synchronize()`,
+    so a call's time covers its device work and none of the work queued
+    before it."""
+    def _sync() -> None:
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
+    def _run() -> float:
+        _sync()
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        return time.perf_counter() - t0
+
+    for _ in range(warmup):
+        _run()
+    return float(np.median([_run() for _ in range(iters)]))
+
+
+# -- JSON files ------------------------------------------------------------------
+def write_json(path: str, obj: Any) -> None:
+    """Write `obj` as indented JSON, atomically (tmp file + `os.replace`)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f, indent=2, sort_keys=True, default=_json_default)
+    os.replace(tmp, path)  # atomic
+
+
+def read_json(path: str) -> Any:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _json_default(o: Any) -> Any:
+    if isinstance(o, np.integer):
+        return int(o)
+    if isinstance(o, np.floating):
+        return float(o)
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    if torch.is_tensor(o):
+        return o.detach().cpu().tolist()
+    if dataclasses.is_dataclass(o):
+        return dataclasses.asdict(o)
+    return str(o)
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024:
+            return f"{n:.2f}{unit}"
+        n /= 1024
+    return f"{n:.2f}PiB"

@@ -39,7 +39,10 @@ def test_walk_sees_the_package():
             "storage/placement.py", "storage/tenancy.py",
             "storage/sharded.py", "serving/tenants.py",
             "storage/pool/transport.py", "storage/pool/worker.py",
-            "storage/pool/pool.py"} <= ported
+            "storage/pool/pool.py", "data/pipeline.py",
+            "optim/optimizers.py", "runtime/trainer.py",
+            "kernels/embedding_bag/grad.py", "examples/train_dlrm.py",
+            "examples/quickstart.py", "core/plan.py"} <= ported
     sources = {f.name for f in (REPO / "src" / "repro_torch").rglob("*.cu")}
     assert {"embedding_bag.cu", "fused_lookup.cu"} <= sources
 
