@@ -9,6 +9,29 @@ and the script exits non-zero:
   1. device       card name, power limit, TF32 off for matmul and cuDNN
   2. build        the CUDA embedding-bag and fused-lookup kernels, from the
                   sources here, one nvcc each, in parallel
+  2b. lm_zoo      the ten LM archs at `reduced` (f32, TF32 off), each built
+                  on the host from a seeded generator and its state dict
+                  copied to the card: card logits against the host's
+                  (rtol/atol 1e-4); prefill 4 + decode 4 against the card's
+                  teacher forcing (2e-2) for phi4-mini, deepseek-v2-lite,
+                  rwkv6, gemma3 and jamba; whisper's cached decode against
+                  its full decode; each MoE arch's routing (experts, keep
+                  mask) on the card against the host's
+  2c. lm_serve    phi4-mini-3.8b at full width and depth: (a) f32, batch
+                  2, prompt 64 + 16 greedy steps against teacher forcing
+                  over the same 80 tokens (2e-2, greedy tokens agree); (b)
+                  bf16, prompt 512 + 64 greedy steps at batch 1 and 8:
+                  prefill ms, decode-step p50/p99 (CUDA events), tokens/s,
+                  the host's own time a step, the device's busy time and
+                  its top ops (torch.profiler), peak memory, each beside
+                  its floor (each weight once, the cache, the logits) and
+                  `OpCost`'s count on meta tensors; (c) deepseek-v2-lite at
+                  full width cut to 4 layers (1 dense + 3 MoE): (a)'s check
+                  dropless, (b)'s timing at batch 8 under the published
+                  capacity factor, with the tokens capacity drops. Records
+                  for `repro_torch.roofline.report` go to build/lm_roofline/
+                  and the report's table is printed; no DLRM kernel
+                  launches on this path
   3. parity       kernel vs its plain version (ref.embedding_bag_ref) on the
                   card: sum/mean, weights on/off, num_hot 0/>0, f32/bf16,
                   ragged B at every bags-per-block value, vector and scalar
@@ -117,10 +140,10 @@ and the script exits non-zero:
                   the launches of each phase that drives it
 
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
-`--stop-after PHASE` ends the run after that phase (build, parity_fused,
-kernel_time, kernel_diag, replay_device, replay_tiered, quickstart,
-serve_sharded, serve_pool, replay_tenants; a short first call for a new
-kernel); the
+`--stop-after PHASE` ends the run after that phase (build, lm_zoo,
+lm_serve, parity_fused, kernel_time, kernel_diag, replay_device,
+replay_tiered, quickstart, serve_sharded, serve_pool, replay_tenants; a
+short first call for a new kernel or the LM path); the
 result lines are then not printed. The pool phase's workers are spawned
 processes that import this file again as `__mp_main__`: its module level
 does no work.
@@ -151,6 +174,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.checkpoint import CheckpointManager, ModelUpdateStream  # noqa: E402
+from repro_torch.configs import LM_ARCHS, get_config, reduced  # noqa: E402
 from repro_torch.configs.dlrm_production import CONFIG  # noqa: E402
 from repro_torch.core.access_patterns import (PAPER_UNIQUE_PCT,  # noqa: E402
                                               make_pattern)
@@ -159,18 +183,23 @@ from repro_torch.data import DLRMBatch  # noqa: E402
 from repro_torch.examples import quickstart, train_dlrm  # noqa: E402
 from repro_torch.kernels.embedding_bag import fused, kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.embedding_bag.grad import embedding_bag_backward  # noqa: E402
-from repro_torch.models import DLRM  # noqa: E402
+from repro_torch.models import (DLRM, abstract_params, build_model,  # noqa: E402
+                                build_plan, model_flops)
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models.dlrm import bce_with_logits  # noqa: E402
 from repro_torch.optim import rowwise_adagrad_update, sgdm_update  # noqa: E402
 from repro_torch.ps import PSConfig  # noqa: E402
+from repro_torch.roofline import report as lm_report  # noqa: E402
+from repro_torch.roofline.analyze import OpCost, roofline_terms  # noqa: E402
+from repro_torch.roofline.hw import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
+                                     PEAK_FLOPS_F32)
 from repro_torch.serving import (ArbiterConfig, BatcherConfig,  # noqa: E402
                                  ServingSession, SLOConfig, TenantManager,
                                  TenantSpec, UpdateConfig, configure)
 from repro_torch.traffic import (TimedQuery, VirtualClock,  # noqa: E402
                                  make_traffic, replay, replay_tenants)
+from repro_torch.utils import write_json  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-F32_OPS_PER_S = 67e12         # H100 SXM data sheet, f32 outside tensor cores
 SERVE_BATCHES = 3
 # serve_tiered serves the first two of them (a tiered batch of 2048 takes
 # about 50 s on the host; the script stays near half its time limit)
@@ -280,6 +309,24 @@ POOL_WORKERS = 4
 POOL_WORKER_HOST_BYTES = 3 * 10**9
 POOL_SHM_HEADROOM_BYTES = 1 << 30
 POOL_SHM_SLACK_BYTES = 64 << 20
+# lm_zoo: every LM arch at `reduced` (f32, TF32 off), batch 2 x 32 tokens,
+# the card against the host; the reference's five decode archs prefill 4
+# then decode 4 against the card's teacher forcing
+LM_ZOO_BATCH, LM_ZOO_SEQ, LM_ZOO_DECODE_SEQ = 2, 32, 8
+LM_DECODE_ARCHS = ("phi4-mini-3.8b", "deepseek-v2-lite-16b", "rwkv6-7b",
+                   "gemma3-27b", "jamba-1.5-large-398b")
+LM_FORWARD_TOL = {"rtol": 1e-4, "atol": 1e-4}
+LM_DECODE_TOL = {"rtol": 2e-2, "atol": 2e-2}     # tests/test_models.py's
+# lm_serve: (a)/(c) f32 consistency at batch 2, a 64-token prompt, 16
+# greedy steps; (b) bf16 serving, a 512-token prompt, 64 greedy steps at
+# batch 1 and 8, 8 of them profiled; deepseek-v2-lite cut to 4 layers (1
+# dense + 3 MoE), dropless (factor 64, as `reduced`) for (c), the
+# published factor 2.0 at batch 8 for the timing
+LM_CONSIST_BATCH, LM_CONSIST_PROMPT, LM_CONSIST_STEPS = 2, 64, 16
+LM_SERVE_BATCHES, LM_SERVE_PROMPT, LM_SERVE_STEPS = (1, 8), 512, 64
+LM_PROFILED_STEPS, LM_PROFILED_TOP = 8, 10   # steps; ops listed by time
+LM_DEEPSEEK_LAYERS, LM_DEEPSEEK_BATCH, LM_DROPLESS_FACTOR = 4, 8, 64.0
+LM_ROOFLINE_DIR = os.path.join(ROOT, "build", "lm_roofline")
 
 
 def emit(phase: str, **fields) -> None:
@@ -981,8 +1028,8 @@ def phase_kernel_time_fused(sess, tiered, batches) -> dict:
              + raw.numel() * 4 + T * words * 4 + (n_distinct + n_occ) * 4
              + counts.numel() * 4)
     hits = int((slots >= 0).sum())
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = hits * D * 2 / F32_OPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BW * 1e3
+    ops_ms = hits * D * 2 / PEAK_FLOPS_F32 * 1e3
 
     # one tiered batch, step by step (device synchronised at each step)
     ps.breakdown = {}
@@ -1022,7 +1069,7 @@ def _bag_bound_ms(distinct_rows: int, lookups: int, outputs: int,
     """Bytes bound of an f32 bag launch: each distinct row once, the int32
     indices, the output."""
     moved = distinct_rows * dim * 4 + lookups * 4 + outputs * dim * 4
-    return moved / HBM_BYTES_PER_S * 1e3
+    return moved / HBM_BW * 1e3
 
 
 def phase_kernel_diag(tables, idx_served, pattern, opts,
@@ -1060,7 +1107,7 @@ def phase_kernel_diag(tables, idx_served, pattern, opts,
         resident_distinct += int(torch.unique(idx_resident[:, t]).numel())
     served_distinct = sum(int(torch.unique(idx_served[:, t]).numel())
                           for t in range(T))
-    all_lookups_ms = B * T * L * D * 4 / HBM_BYTES_PER_S * 1e3
+    all_lookups_ms = B * T * L * D * 4 / HBM_BW * 1e3
     sets = {}
     for name, idx, distinct in (
             ("a_served", idx_served, served_distinct),
@@ -1964,7 +2011,7 @@ def _train_wide(cfg, pattern, failed: list) -> dict:
         # write one accumulator a row
         "rowwise_adagrad": 3 * table_bytes + 2 * T * R * 4,
     }
-    bound_ms = {k: v / HBM_BYTES_PER_S * 1e3 for k, v in moved.items()}
+    bound_ms = {k: v / HBM_BW * 1e3 for k, v in moved.items()}
     del model, state, step, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -2826,6 +2873,504 @@ def phase_replay_tenants(cfg, pattern) -> dict:
         host_rss_bytes=rss, host_available_bytes=avail, failed=failed)
 
 
+def _lm_inputs(cfg, batch: int, seq: int, seed: int) -> dict:
+    """Seeded inputs on the host: tokens, and qwen2-vl's patch prefix or
+    whisper's frames."""
+    rng = np.random.default_rng(seed)
+    out = {"toks": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int64))}
+    if cfg.vision_prefix_tokens:
+        out["ve"] = torch.from_numpy(rng.normal(size=(
+            batch, cfg.vision_prefix_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.is_encoder_decoder:
+        out["frames"] = torch.from_numpy(rng.normal(size=(
+            batch, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32))
+    return out
+
+
+def _lm_logits(model, cfg, x: dict, device) -> torch.Tensor:
+    """Teacher-forced logits of `x` on `device`."""
+    x = {k: v.to(device) for k, v in x.items()}
+    with torch.inference_mode():
+        if cfg.is_encoder_decoder:
+            return model.decode(x["toks"], model.encode(x["frames"]))[0]
+        return model(x["toks"], vision_embeds=x.get("ve"))
+
+
+@contextlib.contextmanager
+def moe_tap():
+    """Record every MoE call's routing (router probabilities, top experts)
+    and its capacity's keep mask, by wrapping `moe._route` and
+    `moe._dispatch_local` (which `moe_ffn_local` calls) for the block."""
+    calls = []
+    route, dispatch = lm_moe._route, lm_moe._dispatch_local
+
+    def route_tap(router_w, x, top_k):
+        w, e = route(router_w, x, top_k)
+        calls.append({"probs": torch.softmax(x.float() @ router_w, -1),
+                      "top_e": e})
+        return w, e
+
+    def dispatch_tap(x, top_w, top_e, num_experts, capacity):
+        buf, info = dispatch(x, top_w, top_e, num_experts, capacity)
+        calls[-1]["keep"] = info[4]
+        calls[-1]["capacity"] = capacity
+        return buf, info
+    lm_moe._route, lm_moe._dispatch_local = route_tap, dispatch_tap
+    try:
+        yield calls
+    finally:
+        lm_moe._route, lm_moe._dispatch_local = route, dispatch
+
+
+def _routing_diff(cpu_calls, card_calls, top_k: int) -> dict:
+    """Tokens whose experts or keep mask differ between the two runs, and
+    the largest gap between a differing token's k-th and (k+1)-th router
+    probability on the host (a near-tie flips on rounding)."""
+    differ, gap = 0, None
+    for a, b in zip(cpu_calls, card_calls, strict=True):
+        rows = ((a["top_e"] != b["top_e"].cpu()).any(-1)
+                | (a["keep"] != b["keep"].cpu()).reshape(
+                    a["top_e"].shape).any(-1))
+        differ += int(rows.sum())
+        if rows.any():
+            p = torch.sort(a["probs"][rows], dim=-1, descending=True).values
+            g = float((p[:, top_k - 1] - p[:, top_k]).max())
+            gap = g if gap is None else max(gap, g)
+    return {"calls": len(cpu_calls), "tokens_differing": differ,
+            "max_prob_gap_among_differing": gap}
+
+
+def phase_lm_zoo() -> dict:
+    """All ten LM archs at `reduced` (f32, TF32 off): each built on the
+    host from a seeded generator and its state dict copied to the card;
+    the card's forward against the host's; prefill 4 + decode 4 against
+    the card's own teacher forcing for the reference's five decode archs;
+    whisper's cached decode against its full decode; MoE routing on the
+    card against the host's."""
+    dev = torch.device("cuda")
+    failed, archs = [], {}
+    for arch in LM_ARCHS:
+        t0 = time.perf_counter()
+        cfg = reduced(get_config(arch))
+        cpu = build_model(cfg, device="cpu", seed=0)
+        card = build_model(cfg, device=dev, seed=1)
+        card.load_state_dict(cpu.state_dict(), strict=True)
+        x = _lm_inputs(cfg, LM_ZOO_BATCH, LM_ZOO_SEQ, seed=0)
+        with moe_tap() as cpu_calls:
+            want = _lm_logits(cpu, cfg, x, "cpu")
+        with moe_tap() as card_calls:
+            got = _lm_logits(card, cfg, x, dev).cpu()
+        err = (got - want).abs().max().item()
+        expect(failed, bool(torch.isfinite(got).all()),
+               f"{arch}: non-finite logits on the card")
+        expect(failed, torch.allclose(got, want, **LM_FORWARD_TOL),
+               f"{arch}: card logits differ from the host's by {err:.3e}")
+        rec = {"logits_shape": list(got.shape), "max_abs_err": err}
+        if cfg.moe_num_experts:
+            rec["routing"] = _routing_diff(cpu_calls, card_calls,
+                                           cfg.moe_top_k)
+            expect(failed, rec["routing"]["calls"] > 0,
+                   f"{arch}: no MoE call seen")
+        if arch in LM_DECODE_ARCHS:
+            rec["decode_vs_teacher"] = _decode_vs_teacher(
+                card, cfg, x["toks"][:1, :LM_ZOO_DECODE_SEQ].to(dev),
+                prompt=LM_ZOO_DECODE_SEQ // 2, failed=failed, name=arch)
+        if cfg.is_encoder_decoder:
+            rec["cached_vs_full"] = _whisper_cached_vs_full(card, cfg, dev,
+                                                           failed)
+        rec["seconds"] = time.perf_counter() - t0
+        archs[arch] = rec
+        del cpu, card, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"archs": archs, "forward_tolerance": LM_FORWARD_TOL,
+            "decode_tolerance": LM_DECODE_TOL, "failed": failed}
+
+
+def _decode_vs_teacher(model, cfg, toks, *, prompt: int, failed: list,
+                       name: str) -> dict:
+    """prefill `prompt` tokens of `toks` [B, S], then decode the rest one
+    at a time (teacher tokens): each step's logits against the model's
+    own teacher-forced forward over `toks`."""
+    b, s = toks.shape
+    with torch.inference_mode():
+        full = model(toks)
+        cache = model.init_cache(b, s, dtype=torch.float32)
+        logits, cache = model.prefill(toks[:, :prompt], cache)
+        errs = [(logits[:, -1] - full[:, prompt - 1]).abs().max().item()]
+        ok = torch.allclose(logits[:, -1], full[:, prompt - 1],
+                            **LM_DECODE_TOL)
+        for t in range(prompt, s):
+            logits, cache = model.decode_step(toks[:, t:t + 1], cache, t)
+            errs.append((logits[:, 0] - full[:, t]).abs().max().item())
+            ok &= torch.allclose(logits[:, 0], full[:, t], **LM_DECODE_TOL)
+    expect(failed, ok, f"{name}: decode differs from teacher forcing by "
+                       f"{max(errs):.3e}")
+    return {"prompt": prompt, "steps": s - prompt, "max_abs_err": max(errs)}
+
+
+def _whisper_cached_vs_full(model, cfg, dev, failed: list) -> dict:
+    x = _lm_inputs(cfg, 1, 8, seed=2)
+    toks = x["toks"].to(dev)
+    errs, ok = [], True
+    with torch.inference_mode():
+        enc = model.encode(x["frames"].to(dev))
+        full, _ = model.decode(toks, enc)
+        cache = model.init_cache(1, 8, dtype=torch.float32)
+        for t in range(4):
+            step, cache = model.decode(toks[:, t:t + 1], enc, cache=cache,
+                                       cache_pos=t)
+            errs.append((step[:, 0] - full[:, t]).abs().max().item())
+            ok &= torch.allclose(step[:, 0], full[:, t], **LM_DECODE_TOL)
+    expect(failed, ok, f"whisper: cached decode differs from the full by "
+                       f"{max(errs):.3e}")
+    return {"steps": 4, "max_abs_err": max(errs)}
+
+
+def _lm_consistency(cfg, failed: list, name: str) -> dict:
+    """lm_serve (a)/(c): f32 at full width, batch 2, a 64-token prompt,
+    then 16 greedy decode steps; each step's logits against the
+    teacher-forced forward over the same 80 tokens, and the greedy tokens
+    against that forward's argmax (a disagreement must be a near-tie:
+    top-2 gap under the tolerance)."""
+    dev = torch.device("cuda")
+    b, p, n = LM_CONSIST_BATCH, LM_CONSIST_PROMPT, LM_CONSIST_STEPS
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab_size, (b, p), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    with torch.inference_mode():
+        cache = model.init_cache(b, p + n, dtype=torch.float32)
+        logits, cache = model.prefill(toks, cache)
+        steps = [logits[:, -1]]
+        gen = [steps[-1].argmax(-1)]
+        for t in range(p, p + n):
+            logits, cache = model.decode_step(gen[-1][:, None], cache, t)
+            steps.append(logits[:, 0])
+            gen.append(steps[-1].argmax(-1))
+        seq = torch.cat([toks, torch.stack(gen[:-1], 1)], dim=1)  # 80 tokens
+        full = model(seq)[:, p - 1:]                    # positions 63..79
+        steps = torch.stack(steps, 1)
+        err = (steps - full).abs().max().item()
+        ok = torch.allclose(steps, full, **LM_DECODE_TOL)
+        top2 = full.topk(2, dim=-1).values
+        agree = full.argmax(-1) == torch.stack(gen, 1)
+        near_tie = (top2[..., 0] - top2[..., 1]) < LM_DECODE_TOL["atol"]
+    expect(failed, bool(torch.isfinite(steps).all()),
+           f"{name}: non-finite decode logits")
+    expect(failed, ok, f"{name}: decode differs from teacher forcing by "
+                       f"{err:.3e}")
+    expect(failed, bool((agree | near_tie).all()),
+           f"{name}: greedy tokens differ from teacher forcing away from a "
+           f"near-tie")
+    out = {"batch": b, "prompt": p, "steps": n, "dtype": cfg.dtype,
+           "params": sum(q.numel() for q in model.parameters()),
+           "init_s": init_s, "max_abs_err": err,
+           "greedy_agree": int(agree.sum()), "greedy_total": agree.numel(),
+           "near_ties": int((~agree & near_tie).sum()),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del model, cache, full, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_floor(cfg, params: dict, batch: int, tokens: int, kv_len: int,
+              logits: int, expert_frac: float = 1.0) -> int:
+    """The least bytes a call must move: each weight it needs once (an
+    untied input embedding: the rows gathered; routed experts: the share
+    `expert_frac` that this run's tokens reached), the KV cache it reads
+    (`kv_len` positions) or writes, the logits it writes."""
+    weights = 0.0
+    for name, p in params.items():
+        n = p.numel() * p.element_size()
+        if name == "embed" and not cfg.tie_embeddings:
+            n = batch * tokens * cfg.d_model * p.element_size()
+        elif p.dim() == 3 and name.rsplit(".", 1)[-1] in ("wi", "wg", "wo"):
+            n *= expert_frac
+        weights += n
+    specs = build_plan(cfg).layers()
+    per_pos = sum(
+        2 * cfg.num_kv_heads * cfg.hd if s.mixer in ("attn", "attn_local")
+        else cfg.kv_lora_rank + cfg.qk_rope_dim if s.mixer == "mla" else 0
+        for s in specs) * cfg.torch_dtype.itemsize
+    return int(weights + batch * max(kv_len, tokens) * per_pos
+               + batch * logits * cfg.vocab_size * cfg.torch_dtype.itemsize)
+
+
+def _lm_opcost(cfg, batch: int, prompt: int, s_max: int) -> dict:
+    """`OpCost` of a prefill and of one decode step (at the middle of the
+    decode) at these shapes, on meta tensors."""
+    model, params = abstract_params(cfg)
+    meta = torch.device("meta")
+    cache = model.init_cache(batch, s_max)
+    out = {}
+    with OpCost() as cost:
+        model.prefill(torch.zeros((batch, prompt), dtype=torch.long,
+                                  device=meta), cache)
+    out["prefill"] = cost.total()
+    with OpCost() as cost:
+        model.decode_step(torch.zeros((batch, 1), dtype=torch.long,
+                                      device=meta), cache,
+                          prompt + LM_SERVE_STEPS // 2)
+    out["decode"] = cost.total()
+    return out, params
+
+
+def _lm_time(model, cfg, batch: int, failed: list, name: str,
+             smi: str) -> dict:
+    """lm_serve (b): a 512-token prompt and 64 greedy decode steps at
+    `batch`, bf16. Prefill: CUDA events, median of 3. Decode: an event
+    before each step (no host sync inside the loop: each step's token
+    stays on the card), the host clock around each call (its enqueue);
+    one profiled window of 8 steps for the device's busy time and the ops
+    that take it."""
+    dev = torch.device("cuda")
+    p, n = LM_SERVE_PROMPT, LM_SERVE_STEPS
+    prompt = torch.randint(0, cfg.vocab_size, (batch, p), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(4))
+    cache = model.init_cache(batch, p + n)
+
+    def decode(first, steps, events=None, enqueue=None):
+        toks = [first]
+        for t in range(p, p + steps):
+            if events is not None:
+                events[t - p].record()
+            h0 = time.perf_counter()
+            logits, _ = model.decode_step(toks[-1], cache, t)
+            toks.append(logits[:, -1:].argmax(-1))
+            if enqueue is not None:
+                enqueue.append((time.perf_counter() - h0) * 1e3)
+        if events is not None:
+            events[steps].record()
+        return toks
+
+    with torch.inference_mode():
+        logits, _ = model.prefill(prompt, cache)            # warm-up
+        decode(logits[:, -1:].argmax(-1), 4)
+        prefill_ms = []
+        for _ in range(3):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            e0.record()
+            logits, _ = model.prefill(prompt, cache)
+            e1.record()
+            torch.cuda.synchronize()
+            prefill_ms.append(e0.elapsed_time(e1))
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        enqueue = []
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        toks = decode(logits[:, -1:].argmax(-1), n, events, enqueue)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - w0
+        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n)]
+        ids = torch.cat(toks, 1)
+        # the host's own time a step: from an idle card, so no launch
+        # waits on a full queue (in the loop above the host is held back
+        # to the card's pace once the queue fills)
+        host_ms = []
+        for t in range(p, p + 3):
+            torch.cuda.synchronize()
+            h0 = time.perf_counter()
+            model.decode_step(toks[-1], cache, t)
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+        torch.cuda.synchronize()
+        busy = _profiled_busy_ms(decode, toks[0])
+    expect(failed, bool(((ids >= 0) & (ids < cfg.vocab_size)).all()),
+           f"{name}: greedy ids out of the vocabulary")
+    p50 = float(np.percentile(step_ms, 50))
+    out = {"batch": batch, "prompt": p, "steps": n,
+           "prefill_ms": float(np.median(prefill_ms)),
+           "prefill_ms_runs": prefill_ms,
+           "decode_step_ms_p50": p50,
+           "decode_step_ms_p99": float(np.percentile(step_ms, 99)),
+           "decode_wall_s": wall_s,
+           "decode_tokens_per_s": batch * n / wall_s,
+           "enqueue_ms_p50": float(np.percentile(enqueue, 50)),
+           "host_ms_per_step": float(np.median(host_ms)),
+           "host_share_of_step": float(np.median(host_ms)) / p50,
+           "profiled": busy,
+           "greedy_ids_row0": ids[0, 1:].tolist(),
+           "device": smi}
+    if busy.get("busy_ms_per_step") is not None:
+        out["device_idle_share"] = 1.0 - busy["busy_ms_per_step"] / p50
+    return out
+
+
+def _profiled_busy_ms(decode, first) -> dict:
+    """The device's busy time a decode step: the sum of its kernels' own
+    device time over 8 profiled steps (torch.profiler), or why not."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            decode(first, LM_PROFILED_STEPS)
+            torch.cuda.synchronize()
+        # the device's own entries (kernels, copies) give the busy time;
+        # the host ops' self device time attributes it to aten ops
+        us, by_op = 0.0, {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+            if "CUDA" in str(ev.device_type):
+                us += t
+            elif t > 0:
+                by_op[ev.key] = t
+    except Exception as exc:    # the profiler is untried on that machine
+        return {"busy_ms_per_step": None, "error": repr(exc)}
+    if us <= 0:
+        return {"busy_ms_per_step": None,
+                "error": "key_averages() shows no device time"}
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:LM_PROFILED_TOP]
+    return {"busy_ms_per_step": us / 1e3 / LM_PROFILED_STEPS,
+            "steps": LM_PROFILED_STEPS,
+            "ops_ms_per_step": sum(by_op.values()) / 1e3 / LM_PROFILED_STEPS,
+            "top_ops_ms_per_step": {k: v / 1e3 / LM_PROFILED_STEPS
+                                    for k, v in top}}
+
+
+def _lm_records(arch: str, cfg, batch: int, timed: dict, cost: dict,
+                params: dict, peak: int, smi: str,
+                expert_frac: dict | None = None) -> dict:
+    """One record a measured call (the prefill and a decode step) for
+    `repro_torch.roofline.report`, written under build/lm_roofline/, and
+    the bounds beside the times."""
+    p, n = LM_SERVE_PROMPT, LM_SERVE_STEPS
+    out = {}
+    for shape, tokens, kv_len, logits, ms in (
+            ("prefill", p, p, 1, timed["prefill_ms"]),
+            ("decode", 1, p + n // 2, 1, timed["decode_step_ms_p50"])):
+        floor_bytes = _lm_floor(cfg, params, batch, tokens, kv_len, logits,
+                                (expert_frac or {}).get(shape, 1.0))
+        c = cost[shape]
+        floor_ms = max(floor_bytes / HBM_BW, c["flops"] / PEAK_FLOPS_BF16) \
+            * 1e3
+        terms = roofline_terms(c, num_chips=1)
+        rec = {"arch": arch, "shape": f"{shape}_b{batch}", "mesh": "single",
+               "cell": f"{arch}__{shape}_b{batch}__single", "status": "ok",
+               "roofline": terms, "memory": {"per_device_total": peak},
+               "model_flops_global": model_flops(cfg, batch * tokens,
+                                                 "decode"),
+               "floor_bytes": floor_bytes, "floor_ms": floor_ms,
+               "measured_ms": ms, "device": smi}
+        write_json(os.path.join(LM_ROOFLINE_DIR, rec["cell"] + ".json"), rec)
+        out[shape] = {"ms": ms, "floor_bytes": floor_bytes,
+                      "floor_ms": floor_ms,
+                      "floor_by": ("bytes" if floor_bytes / HBM_BW
+                                   >= c["flops"] / PEAK_FLOPS_BF16
+                                   else "operations"),
+                      "share_of_floor": floor_ms / ms,
+                      "opcost_bytes": c["bytes"], "opcost_flops": c["flops"],
+                      "opcost_memory_ms": terms["memory_s"] * 1e3,
+                      "opcost_compute_ms": terms["compute_s"] * 1e3,
+                      "share_of_opcost_bound": max(
+                          terms["memory_s"], terms["compute_s"]) * 1e3 / ms}
+    return out
+
+
+def phase_lm_serve(smi: str) -> dict:
+    """phi4-mini-3.8b at full width and depth: (a) f32 consistency, (b)
+    bf16 serving at batch 1 and 8; deepseek-v2-lite at full width, depth 4:
+    (c) f32 consistency (dropless), bf16 serving at batch 8 under the
+    published capacity factor, with the tokens capacity drops."""
+    dev = torch.device("cuda")
+    failed = []
+    shutil.rmtree(LM_ROOFLINE_DIR, ignore_errors=True)
+    bag0, fused0 = kernel.LAUNCHES, fused.LAUNCHES
+    phi = get_config("phi4-mini-3.8b")
+    ds = dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                             num_layers=LM_DEEPSEEK_LAYERS)
+    out = {"phi4_consistency": _lm_consistency(
+        dataclasses.replace(phi, dtype="float32"), failed, "phi4 f32")}
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(phi, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    serve = {"init_s": init_s, "dtype": phi.dtype,
+             "params": sum(q.numel() for q in model.parameters()),
+             "weight_bytes": sum(q.numel() * q.element_size()
+                                 for q in model.parameters())}
+    for batch in LM_SERVE_BATCHES:
+        timed = _lm_time(model, phi, batch, failed, f"phi4 b{batch}", smi)
+        cost, params = _lm_opcost(phi, batch, LM_SERVE_PROMPT,
+                                  LM_SERVE_PROMPT + LM_SERVE_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        timed["bounds"] = _lm_records("phi4-mini-3.8b", phi, batch, timed,
+                                      cost, params, peak, smi)
+        timed["peak_memory_bytes"] = peak
+        serve[f"b{batch}"] = timed
+    out["phi4_serve"] = serve
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["deepseek_consistency"] = _lm_consistency(
+        dataclasses.replace(ds, dtype="float32",
+                            moe_capacity_factor=LM_DROPLESS_FACTOR),
+        failed, "deepseek f32")
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(ds, device=dev, seed=0)
+    batch = LM_DEEPSEEK_BATCH
+    timed = _lm_time(model, ds, batch, failed, f"deepseek b{batch}", smi)
+    with moe_tap() as calls, torch.inference_mode():
+        # the drops of one prefill and its 64 decode steps, untimed
+        cache = model.init_cache(batch, LM_SERVE_PROMPT + LM_SERVE_STEPS)
+        toks = torch.randint(0, ds.vocab_size, (batch, LM_SERVE_PROMPT),
+                             device=dev, generator=torch.Generator(
+                                 device=dev).manual_seed(4))
+        logits, _ = model.prefill(toks, cache)
+        n_prefill = len(calls)
+        tok = logits[:, -1:].argmax(-1)
+        for t in range(LM_SERVE_PROMPT, LM_SERVE_PROMPT + LM_SERVE_STEPS):
+            logits, _ = model.decode_step(tok, cache, t)
+            tok = logits[:, -1:].argmax(-1)
+    drops, expert_frac = {}, {}
+    for leg, legs in (("prefill", calls[:n_prefill]),
+                      ("decode", calls[n_prefill:])):
+        kept = sum(int(c["keep"].sum()) for c in legs)
+        total = sum(c["keep"].numel() for c in legs)
+        # experts that computed a kept token, a call (the floor's share)
+        reached = [int(torch.unique(c["top_e"].reshape(-1)[c["keep"]])
+                       .numel()) for c in legs]
+        expert_frac[leg] = float(np.mean(reached)) / ds.moe_num_experts
+        drops[leg] = {"moe_calls": len(legs), "assignments": total,
+                      "dropped": total - kept,
+                      "capacity": sorted({c["capacity"] for c in legs}),
+                      "experts_reached_mean": float(np.mean(reached))}
+    expect(failed, drops["decode"]["capacity"] == [1],
+           f"deepseek decode capacity {drops['decode']['capacity']}, not 1")
+    cost, params = _lm_opcost(ds, batch, LM_SERVE_PROMPT,
+                              LM_SERVE_PROMPT + LM_SERVE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    timed["bounds"] = _lm_records("deepseek-v2-lite-16b-4l", ds, batch,
+                                  timed, cost, params, peak, smi,
+                                  expert_frac)
+    timed["peak_memory_bytes"] = peak
+    timed["moe_drops"] = drops
+    out["deepseek_serve"] = {"layers": ds.num_layers,
+                             "capacity_factor": ds.moe_capacity_factor,
+                             f"b{batch}": timed}
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["kernel_launches"] = {"embedding_bag": kernel.LAUNCHES - bag0,
+                              "fused_warm_lookup": fused.LAUNCHES - fused0}
+    expect(failed, out["kernel_launches"] == {"embedding_bag": 0,
+                                              "fused_warm_lookup": 0},
+           "the LM path launched a DLRM kernel")
+    out["roofline_dir"] = os.path.relpath(LM_ROOFLINE_DIR, ROOT)
+    out["failed"] = failed
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--stop-after", default=None,
@@ -2876,6 +3421,23 @@ def main() -> int:
                       if "registers" in ln or "spill" in ln]}
     emit("build", libraries=libs, seconds=time.perf_counter() - t0)
     if stop("build"):
+        return 0
+
+    # 2b. lm_zoo: the ten LM archs at `reduced`, card against host
+    t0 = time.perf_counter()
+    zoo = phase_lm_zoo()
+    emit("lm_zoo", **zoo, seconds=time.perf_counter() - t0)
+    check(not zoo["failed"], f"lm_zoo: {zoo['failed']}")
+    if stop("lm_zoo"):
+        return 0
+
+    # 2c. lm_serve: phi4-mini at full width and depth, deepseek at depth 4
+    t0 = time.perf_counter()
+    lm = phase_lm_serve(smi)
+    emit("lm_serve", **lm, seconds=time.perf_counter() - t0)
+    lm_report.main(["--dir", LM_ROOFLINE_DIR])
+    check(not lm["failed"], f"lm_serve: {lm['failed']}")
+    if stop("lm_serve"):
         return 0
 
     # 3. parity
@@ -3002,8 +3564,8 @@ def main() -> int:
     distinct = sum(int(torch.unique(idx[:, t]).numel()) for t in range(T))
     moved = distinct * D * 4 + idx.numel() * 4 + out_k.numel() * 4
     ops_count = B * T * L * D
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops_count / F32_OPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BW * 1e3
+    ops_ms = ops_count / PEAK_FLOPS_F32 * 1e3
     all_lookups = B * T * L * D * 4
     emit("kernel_time", shape=[B, T, L, D], ms=ms, plain_ms=plain_ms,
          library_ms=library_ms, library="torch.nn.functional.embedding_bag",
@@ -3013,7 +3575,7 @@ def main() -> int:
          bound_by="bytes" if bytes_ms >= ops_ms else "operations",
          bytes_bound_ms=bytes_ms, ops_bound_ms=ops_ms,
          all_lookups_bytes=all_lookups,
-         all_lookups_ms_at_peak=all_lookups / HBM_BYTES_PER_S * 1e3,
+         all_lookups_ms_at_peak=all_lookups / HBM_BW * 1e3,
          fraction_of_bound=max(bytes_ms, ops_ms) / ms, **bag_info,
          breakdown_ms={"indices_to_device": h2d_ms, "embedding_kernel": ms,
                        "mlps_and_interaction": rest_ms,

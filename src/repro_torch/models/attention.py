@@ -1,0 +1,232 @@
+"""Attention variants: GQA (RoPE, optional sliding window) and MLA (DeepSeek).
+
+Prefill/train use a chunked online-softmax attention (a loop over KV chunks)
+so a long prefill never materializes an [S, S] score matrix. Decode attends
+one query against the KV cache directly. Plain torch ops: no library
+attention kernel, so the masks, the chunking and the f32 accumulation are
+the JAX package's.
+
+Caches are tensors written in place at `cache_pos` (a Python int); each
+call still returns its cache. The JAX package's `pspec.constrain_*` calls
+(sharding hints, identities on one device) are left out where they stood.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, dense_init
+
+NEG_INF = -1e30   # not -inf: a fully masked chunk must not give NaN
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # [B, S_max, KV, hd]
+    v: torch.Tensor
+
+
+def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum of operands in their own dtype with an f32 result (the
+    reference's `preferred_element_type=float32`): a product of two bf16
+    values is exact in f32, so widening the operands first is that."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      q_offset=0, kv_len=None, chunk: int = 512):
+    """Online-softmax attention, O(chunk) score memory.
+
+    q: [B, Sq, KV, G, hd_qk]   (G = query heads per KV group)
+    k: [B, Skv, KV, hd_qk];  v: [B, Skv, KV, hd_v]
+    q_offset: position of q[0], an int or a 0-d tensor on q's device
+    window: >0 => only attend to kpos in (qpos-window, qpos]
+    kv_len: optional int; kpos >= kv_len masked out (decode w/ cache)
+    """
+    b, sq, nkv, g, hd = q.shape
+    hd_v = v.shape[-1]
+    skv = k.shape[1]
+    dev = q.device
+
+    qpos = q_offset + torch.arange(sq, device=dev)           # [Sq]
+    # 1/sqrt(hd) rounded as the reference rounds it (f32 throughout); a
+    # Python number, so the card gets no host-to-device copy
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    qf = q.float() * scale
+
+    if sq == 1:
+        # Decode fast path: one query against the whole cache, no chunks.
+        s = _f32_einsum("bqkgh,bskh->bqkgs", qf.to(k.dtype), k)
+        kpos = torch.arange(skv, device=dev)
+        mask = kpos < (kv_len if kv_len is not None else skv)
+        if causal:
+            mask &= kpos <= qpos[0]
+        if window > 0:
+            mask &= kpos > qpos[0] - window
+        s = torch.where(mask[None, None, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = _f32_einsum("bqkgs,bskh->bqkgh", p.to(v.dtype), v)
+        return out.to(q.dtype)
+
+    chunk = min(chunk, skv)
+    n_chunks = -(-skv // chunk)
+    m = torch.full((b, sq, nkv, g, 1), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((b, sq, nkv, g, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, sq, nkv, g, hd_v), dtype=torch.float32, device=dev)
+    qk = qf.to(k.dtype)
+    for ci in range(n_chunks):
+        # a short last chunk stands for the reference's zero padding: its
+        # padded keys are masked (kpos < skv), so they add nothing
+        k_i = k[:, ci * chunk:(ci + 1) * chunk]
+        v_i = v[:, ci * chunk:(ci + 1) * chunk]
+        kpos = ci * chunk + torch.arange(k_i.shape[1], device=dev)   # [Ck]
+        s = _f32_einsum("bqkgh,bckh->bqkgc", qk, k_i)
+        mask = torch.ones((sq, k_i.shape[1]), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window > 0:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        if kv_len is not None:
+            mask &= kpos[None, :] < kv_len
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + _f32_einsum("bqkgc,bckh->bqkgh", p.to(v_i.dtype),
+                                       v_i)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+
+def gqa_init(cfg: ModelConfig, *, generator, device,
+             kv_heads: Optional[int] = None) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    nh = cfg.num_heads
+    nkv = kv_heads if kv_heads is not None else cfg.num_kv_heads
+    dt = cfg.torch_dtype
+
+    def init(shape):
+        return dense_init(shape, dt, generator=generator, device=device)
+    return {"wq": init((d, nh * hd)), "wk": init((d, nkv * hd)),
+            "wv": init((d, nkv * hd)), "wo": init((nh * hd, d))}
+
+
+def gqa_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
+              positions: torch.Tensor, window: int = 0, causal: bool = True,
+              cache: Optional[KVCache] = None, cache_pos: Optional[int] = None,
+              cross_kv: Optional[tuple] = None, use_rope: bool = True):
+    """x: [B, S, d]; positions: [S] int tensor -> ([B, S, d], cache).
+
+    With a cache, k and v are written into it at `cache_pos` in place and
+    the returned cache is the same tensors."""
+    b, s, d = x.shape
+    nh, hd = cfg.num_heads, cfg.hd
+    nkv = params["wk"].shape[1] // hd
+    g = nh // nkv
+
+    q = (x @ params["wq"]).reshape(b, s, nh, hd)
+    if cross_kv is None:
+        k = (x @ params["wk"]).reshape(b, s, nkv, hd)
+        v = (x @ params["wv"]).reshape(b, s, nkv, hd)
+        if use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = cross_kv
+        if k.shape[2] != nkv:  # cross-attn kv heads follow the provided kv
+            nkv = k.shape[2]
+            g = nh // nkv
+
+    new_cache = None
+    kv_len = None
+    q_offset = positions[0]
+    if cache is not None and cross_kv is None:
+        # (pspec.constrain_kv stood around these writes)
+        cache.k[:, cache_pos:cache_pos + s] = k.to(cache.k.dtype)
+        cache.v[:, cache_pos:cache_pos + s] = v.to(cache.v.dtype)
+        new_cache = cache
+        k, v = cache.k, cache.v
+        kv_len = cache_pos + s
+
+    qg = q.reshape(b, s, nkv, g, hd)
+    out = chunked_attention(qg, k, v, causal=causal and cross_kv is None,
+                            window=window, q_offset=q_offset, kv_len=kv_len)
+    out = out.reshape(b, s, nh * hd)
+    return out @ params["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed-KV multi-head latent attention
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor    # [B, S_max, kv_lora]
+    krope: torch.Tensor  # [B, S_max, qk_rope_dim]
+
+
+def mla_init(cfg: ModelConfig, *, generator, device) -> dict:
+    d = cfg.d_model
+    nh = cfg.num_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    dt = cfg.torch_dtype
+
+    def init(shape):
+        return dense_init(shape, dt, generator=generator, device=device)
+    return {
+        "wq": init((d, nh * qk)),
+        "w_dkv": init((d, cfg.kv_lora_rank)),
+        "w_kr": init((d, cfg.qk_rope_dim)),
+        "k_up": init((cfg.kv_lora_rank, nh * cfg.qk_nope_dim)),
+        "v_up": init((cfg.kv_lora_rank, nh * cfg.v_head_dim)),
+        "wo": init((nh * cfg.v_head_dim, d)),
+    }
+
+
+def mla_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
+              positions: torch.Tensor, cache: Optional[MLACache] = None,
+              cache_pos: Optional[int] = None):
+    b, s, d = x.shape
+    nh = cfg.num_heads
+    nope, rope_d, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+
+    q = (x @ params["wq"]).reshape(b, s, nh, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckv = x @ params["w_dkv"]                                   # [B, S, lora]
+    krope = apply_rope((x @ params["w_kr"])[:, :, None, :],
+                       positions, cfg.rope_theta)[:, :, 0, :]   # [B, S, rope]
+
+    new_cache = None
+    kv_len = None
+    q_offset = positions[0]
+    if cache is not None:
+        # (pspec.constrain_mla stood around these writes)
+        cache.ckv[:, cache_pos:cache_pos + s] = ckv.to(cache.ckv.dtype)
+        cache.krope[:, cache_pos:cache_pos + s] = krope.to(cache.krope.dtype)
+        new_cache = cache
+        ckv, krope = cache.ckv, cache.krope
+        kv_len = cache_pos + s
+
+    skv = ckv.shape[1]
+    # Up-project the compressed cache (the materializing form; the absorbed
+    # decode variant is not the reference's)
+    k_nope = (ckv @ params["k_up"]).reshape(b, skv, nh, nope)
+    v = (ckv @ params["v_up"]).reshape(b, skv, nh, vh)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(b, skv, nh, rope_d)],
+                  dim=-1)
+    qh = torch.cat([q_nope, q_rope], dim=-1)                    # [B,S,H,qk]
+
+    out = chunked_attention(qh[:, :, :, None, :], k, v, causal=True,
+                            q_offset=q_offset, kv_len=kv_len)
+    out = out.reshape(b, s, nh * vh)
+    return out @ params["wo"], new_cache

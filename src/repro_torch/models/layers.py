@@ -1,13 +1,17 @@
-"""Primitive layers used by the DLRM: init helper and the MLP tower.
+"""Primitive layers: the init helper, the parameter tree, norms, the
+feed-forward variants, RoPE, and the DLRM's MLP tower.
 
 Weights keep the TPU path's [in, out] layout and compute `x @ w + b`, so a
-parameter tree from `repro.models.layers.mlp_tower_init` loads as it is
-(`repro_torch.convert`). The norms, FFN and RoPE come with the LM zoo.
+parameter tree from the JAX package loads as it is (`repro_torch.convert`).
+The LM zoo's layers are functions over a `Params` tree, as the JAX
+package's are over dicts: `ffn_apply(params, x, act)` reads
+`params["wi"]` whichever package made the tree.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -16,9 +20,106 @@ def dense_init(shape, dtype: torch.dtype, *, generator: torch.Generator,
     """Truncated-normal fan-in init (±2 standard deviations)."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    if torch.device(device).type == "meta":      # shapes only (registry)
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.empty(shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * scale).to(dtype)
+
+
+class Params(nn.Module):
+    """A tree of parameters addressed like the JAX package's dicts:
+    `p["mixer"]["wq"]`, `"shared" in p`. Nested dicts become child trees,
+    so `state_dict()` names a leaf by its dotted path in the reference's
+    tree (`mixer.wq`). Integer leaves are held without a gradient."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(name, Params(value))
+            else:
+                self.register_parameter(name, nn.Parameter(
+                    value, requires_grad=value.is_floating_point()))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
+    """x·rsqrt(mean(x²)+eps)·(1+w), in f32, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward variants
+# ---------------------------------------------------------------------------
+
+def ffn_init(d_model: int, d_ff: int, act: str, dtype, *,
+             generator: torch.Generator, device) -> dict:
+    def init(shape):
+        return dense_init(shape, dtype, generator=generator, device=device)
+    if act == "swiglu":
+        return {"wi": init((d_model, d_ff)), "wg": init((d_model, d_ff)),
+                "wo": init((d_ff, d_model))}
+    return {"wi": init((d_model, d_ff)), "wo": init((d_ff, d_model))}
+
+
+def ffn_apply(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = x @ params["wi"]
+    if act == "swiglu":
+        h = F.silu(x @ params["wg"]) * h
+    elif act == "gelu":
+        h = F.gelu(h, approximate="tanh")       # jax.nn.gelu's default
+    elif act == "relu_sq":
+        h = torch.square(torch.relu(h))
+    else:
+        raise ValueError(act)
+    return h @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# RoPE (incl. the M-RoPE degenerate form for text positions)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: [..., S, H, hd]; positions: [..., S] int -> rotated x.
+
+    Each head splits into two halves (x1, x2), not interleaved pairs; the
+    angles are f32. M-RoPE note (qwen2-vl): with text-only/stub-vision
+    inputs all three position sections (t/h/w) carry the same sequential
+    ids, which makes M-RoPE numerically identical to 1-D RoPE; the 1-D form
+    is used.
+    """
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)          # [hd/2]
+    ang = positions[..., None].float() * freqs              # [..., S, hd/2]
+    cos = torch.cos(ang)[..., None, :]                      # over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
 
 
 class MLPTower(nn.Module):

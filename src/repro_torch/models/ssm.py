@@ -1,0 +1,322 @@
+"""State-space / linear-attention blocks: Mamba (Jamba) and RWKV-6 (Finch).
+
+Both expose a sequence form (train/prefill; chunked parallel scan for Mamba,
+chunked WKV for RWKV) and a single-step decode form carrying O(1) state.
+States are tensors updated in place when given; each call still returns
+them.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dense_init
+
+
+# ---------------------------------------------------------------------------
+# Mamba (S6 selective scan), chunked associative scan
+# ---------------------------------------------------------------------------
+
+class MambaState(NamedTuple):
+    h: torch.Tensor         # [B, d_inner, state]
+    conv: torch.Tensor      # [B, conv_dim-1, d_inner] trailing inputs
+
+
+def mamba_init(cfg: ModelConfig, *, generator, device) -> dict:
+    d = cfg.d_model
+    di = cfg.ssm_expand * d
+    st = cfg.ssm_state_dim
+    dt_rank = max(1, d // 16)
+    dt = cfg.torch_dtype
+
+    def init(shape):
+        return dense_init(shape, dt, generator=generator, device=device)
+    return {
+        # separate x/z projections (clean column sharding)
+        "in_x": init((d, di)),
+        "in_z": init((d, di)),
+        "conv_w": init((cfg.ssm_conv_dim, di)),
+        "conv_b": torch.zeros((di,), dtype=dt, device=device),
+        "x_proj": init((di, dt_rank + 2 * st)),
+        "dt_proj": init((dt_rank, di)),
+        "dt_bias": torch.full((di,), -4.6, dtype=dt, device=device),
+        "A_log": torch.log(torch.arange(1, st + 1, dtype=torch.float32,
+                                        device=device).expand(di, st)
+                           .contiguous()),
+        "D": torch.ones((di,), dtype=torch.float32, device=device),
+        "out_proj": init((di, d)),
+    }
+
+
+def _assoc_scan(a, b):
+    """Inclusive scan of h_t = a_t*h_{t-1} + b_t along dim 1, as pairs
+    (a_cum, b_cum) combined by (a1, b1)∘(a2, b2) = (a1*a2, a2*b1 + b2):
+    log2(n) doubling steps (an associative scan, as the reference's)."""
+    n = a.shape[1]
+    off = 1
+    while off < n:
+        a_prev, b_prev = a[:, :-off], b[:, :-off]
+        a_cur, b_cur = a[:, off:], b[:, off:]
+        a = torch.cat([a[:, :off], a_prev * a_cur], dim=1)
+        b = torch.cat([b[:, :off], a_cur * b_prev + b_cur], dim=1)
+        off *= 2
+    return a, b
+
+
+def _mamba_scan_chunked(dA, dBx, h0, chunk: int = 256):
+    """h_t = dA_t * h_{t-1} + dBx_t over time, chunked associative scan.
+
+    dA, dBx: [B, S, di, st] (f32). Returns (ys [B,S,di,st], h_last).
+    """
+    b, s, di, st = dA.shape
+    chunk = min(chunk, s)
+    n = -(-s // chunk)
+    pad = n * chunk - s
+    if pad:  # pad with identity transitions
+        dA = F.pad(dA, (0, 0, 0, 0, 0, pad), value=1.0)
+        dBx = F.pad(dBx, (0, 0, 0, 0, 0, pad))
+    h = h0
+    ys = []
+    for c in range(n):
+        a_cum, b_cum = _assoc_scan(dA[:, c * chunk:(c + 1) * chunk],
+                                   dBx[:, c * chunk:(c + 1) * chunk])
+        hs = a_cum * h[:, None] + b_cum          # [B, chunk, di, st]
+        h = hs[:, -1]
+        ys.append(hs)
+    return torch.cat(ys, dim=1)[:, :s], h
+
+
+def mamba_apply(params, cfg: ModelConfig, x: torch.Tensor,
+                state: MambaState | None = None):
+    """x: [B, S, d] -> ([B, S, d], state).
+
+    state is None for train (zero init, state discarded); for decode the
+    conv/ssm states are carried, updated in place.
+    """
+    b, s, d = x.shape
+    st = cfg.ssm_state_dim
+    cd = cfg.ssm_conv_dim
+    dt_rank = max(1, d // 16)
+
+    xin = x @ params["in_x"]                               # [B, S, di]
+    z = x @ params["in_z"]
+
+    # Causal depthwise conv along seq.
+    if state is None:
+        xpad = F.pad(xin, (0, 0, cd - 1, 0))
+    else:
+        xpad = torch.cat([state.conv.to(xin.dtype), xin], dim=1)
+    idx = (torch.arange(s, device=x.device)[:, None]
+           + torch.arange(cd, device=x.device)[None, :])
+    windows = xpad[:, idx]                                 # [B, S, cd, di]
+    xc = torch.einsum("bscd,cd->bsd", windows, params["conv_w"]) \
+        + params["conv_b"]
+    xc = F.silu(xc)
+
+    proj = xc @ params["x_proj"]
+    dt_in, Bc, Cc = torch.split(proj, [dt_rank, st, st], dim=-1)
+    dt = F.softplus(dt_in @ params["dt_proj"]
+                    + params["dt_bias"]).float()           # [B,S,di]
+    A = -torch.exp(params["A_log"])                        # [di, st]
+    dA = torch.exp(dt[..., None] * A)                      # [B,S,di,st]
+    dBx = (dt * xc.float())[..., None] \
+        * Bc.float()[:, :, None, :]                        # [B,S,di,st]
+
+    h0 = (torch.zeros((b, dt.shape[-1], st), dtype=torch.float32,
+                      device=x.device) if state is None else state.h.float())
+    if s == 1:
+        h_last = dA[:, 0] * h0 + dBx[:, 0]
+        hs = h_last[:, None]
+    else:
+        hs, h_last = _mamba_scan_chunked(dA, dBx, h0)
+
+    y = torch.einsum("bsdn,bsn->bsd", hs, Cc.float())
+    y = y + params["D"] * xc.float()
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = y @ params["out_proj"]
+
+    if state is not None:
+        state.h.copy_(h_last)
+        state.conv.copy_(xpad[:, -(cd - 1):])
+    return out, state
+
+
+def mamba_zero_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device=None):
+    di = cfg.ssm_expand * cfg.d_model
+    return MambaState(
+        h=torch.zeros((batch, di, cfg.ssm_state_dim), dtype=dtype,
+                      device=device),
+        conv=torch.zeros((batch, cfg.ssm_conv_dim - 1, di), dtype=dtype,
+                         device=device))
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 "Finch": data-dependent decay linear attention
+# ---------------------------------------------------------------------------
+
+class RWKVState(NamedTuple):
+    wkv: torch.Tensor       # [B, H, dh, dh]
+    shift_t: torch.Tensor   # [B, d] last token (time mix)
+    shift_c: torch.Tensor   # [B, d] last token (channel mix)
+
+
+def rwkv_init(cfg: ModelConfig, *, generator, device) -> dict:
+    d = cfg.d_model
+    dh = cfg.rwkv_head_dim
+    nh = d // dh
+    lora = 64
+    dt = cfg.torch_dtype
+
+    def init(shape, dtype=dt, scale=None):
+        return dense_init(shape, dtype, generator=generator, device=device,
+                          scale=scale)
+    return {
+        # time-mix lerp coefficients (static part of rwkv6 ddlerp)
+        "mu": {k: init((1, 1, d), scale=0.2)
+               for k in ["r", "k", "v", "w", "g"]},
+        "w_r": init((d, d)),
+        "w_k": init((d, d)),
+        "w_v": init((d, d)),
+        "w_g": init((d, d)),
+        "w_o": init((d, d)),
+        # data-dependent decay lora: w = exp(-exp(w0 + tanh(x A) B))
+        "w0": torch.full((d,), -2.0, dtype=torch.float32, device=device),
+        "w_lora_a": init((d, lora)),
+        "w_lora_b": init((lora, d)),
+        "u": init((nh, dh), torch.float32),
+        "ln_x": torch.ones((d,), dtype=torch.float32, device=device),
+    }
+
+
+def _rwkv_chunked_scan(r, k, v, w, u, S0, chunk: int = 64):
+    """Chunk-parallel RWKV6 WKV. r/k/v/w: [B, S, H, dh] (w = decay in (0,1)).
+
+    Returns (y [B, S, H, dh], S_last [B, H, dh, dh]). The reference's
+    arithmetic as it stands: within-chunk cumulative decays W, k divided by
+    max(W, 1e-20), padding with identity decays.
+    """
+    b, s, nh, dh = r.shape
+    c = min(chunk, s)
+    n = -(-s // c)
+    pad = n * c - s
+    if pad:  # identity decays, zero k/v contributions
+        zp = (0, 0, 0, 0, 0, pad)
+        r, k, v = F.pad(r, zp), F.pad(k, zp), F.pad(v, zp)
+        w = F.pad(w, zp, value=1.0)
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                     diagonal=-1)
+    S_c = S0
+    outs = []
+    for i in range(n):
+        sl = slice(i * c, (i + 1) * c)
+        r_i, k_i, v_i, w_i = r[:, sl], k[:, sl], v[:, sl], w[:, sl]
+        W = torch.cumprod(w_i, dim=1)                     # [B,C,H,dh] W_t
+        W_prev = W / w_i                                  # W_{t-1} (W_0 = 1)
+        rW = r_i * W_prev                                 # [B,C,H,dh]
+        kW = k_i / torch.clamp_min(W, 1e-20)              # k_s / W_s
+        # intra-chunk attention-like matrix [B,H,C,C]
+        A = torch.einsum("bthi,bshi->bhts", rW, kW)
+        A = torch.where(tri[None, None], A, 0.0)
+        diag = torch.einsum("bthi,bthi->bth", r_i * u[None, None], k_i)
+        out = torch.einsum("bhts,bshj->bthj", A, v_i) \
+            + diag[..., None] * v_i \
+            + torch.einsum("bthi,bhij->bthj", rW, S_c)    # h0 contribution
+        W_C = W[:, -1]                                    # [B,H,dh]
+        S_c = W_C[..., :, None] * S_c + torch.einsum(
+            "bshi,bshj->bhij", kW * W_C[:, None], v_i)
+        outs.append(out)
+    y = torch.cat(outs, dim=1)[:, :s]
+    return y, S_c
+
+
+def rwkv_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
+                  state: RWKVState | None = None):
+    """RWKV-6 time mixing. x: [B, S, d] -> ([B, S, d], (wkv, shift))."""
+    b, s, d = x.shape
+    dh = cfg.rwkv_head_dim
+    nh = d // dh
+
+    prev = (torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
+            if state is None else state.shift_t[:, None].to(x.dtype))
+    xs = torch.cat([prev, x[:, :-1]], dim=1)              # token shift
+    mu = params["mu"]
+
+    def mix(m):
+        return x + (xs - x) * mu[m]
+    r = (mix("r") @ params["w_r"]).reshape(b, s, nh, dh)
+    k = (mix("k") @ params["w_k"]).reshape(b, s, nh, dh)
+    v = (mix("v") @ params["w_v"]).reshape(b, s, nh, dh)
+    g = F.silu(mix("g") @ params["w_g"])
+    wdd = params["w0"] + torch.tanh(mix("w") @ params["w_lora_a"]) \
+        @ params["w_lora_b"]
+    w = torch.exp(-torch.exp(wdd.float()))                # decay in (0,1)
+    w = w.reshape(b, s, nh, dh)
+
+    rf, kf, vf = r.float(), k.float(), v.float()
+    u = params["u"]                                       # [H, dh]
+
+    S0 = (torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=x.device)
+          if state is None else state.wkv.float())
+    if s > 1:
+        # Chunked WKV: O(S/C) sequential chunk steps of matrix products
+        # instead of S outer-product steps (see _rwkv_chunked_scan).
+        y, S_last = _rwkv_chunked_scan(rf, kf, vf, w, u, S0, chunk=64)
+    else:
+        S_c = S0
+        outs = []
+        for t in range(s):
+            r_t, k_t, v_t, w_t = rf[:, t], kf[:, t], vf[:, t], w[:, t]
+            kv = k_t[..., :, None] * v_t[..., None, :]    # [B,H,dh,dh]
+            outs.append(torch.einsum("bhi,bhij->bhj", r_t,
+                                     S_c + u[..., None] * kv))
+            S_c = w_t[..., :, None] * S_c + kv
+        S_last = S_c
+        y = torch.stack(outs, dim=1)
+    # group-norm per head (ln_x), then gate
+    y = y.reshape(b, s, nh, dh)
+    y = (y - y.mean(-1, keepdim=True)) * torch.rsqrt(
+        y.var(-1, keepdim=True, unbiased=False) + 64e-5)
+    y = (y.reshape(b, s, d) * params["ln_x"]).to(x.dtype) * g
+    out = y @ params["w_o"]
+    return out, (S_last, x[:, -1])
+
+
+def rwkv_channel_mix_init(cfg: ModelConfig, *, generator, device) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    dt = cfg.torch_dtype
+
+    def init(shape, scale=None):
+        return dense_init(shape, dt, generator=generator, device=device,
+                          scale=scale)
+    return {"mu_k": init((1, 1, d), scale=0.2),
+            "mu_r": init((1, 1, d), scale=0.2),
+            "cm_k": init((d, f)),
+            "cm_v": init((f, d)),
+            "cm_r": init((d, d))}
+
+
+def rwkv_channel_mix(params, x: torch.Tensor,
+                     shift: torch.Tensor | None = None):
+    b, s, d = x.shape
+    prev = (torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
+            if shift is None else shift[:, None].to(x.dtype))
+    xs = torch.cat([prev, x[:, :-1]], dim=1)
+    xk = x + (xs - x) * params["mu_k"]
+    xr = x + (xs - x) * params["mu_r"]
+    v = torch.square(torch.relu(xk @ params["cm_k"])) @ params["cm_v"]
+    return torch.sigmoid(xr @ params["cm_r"]) * v, x[:, -1]
+
+
+def rwkv_zero_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                    device=None):
+    d = cfg.d_model
+    nh = d // cfg.rwkv_head_dim
+    dh = cfg.rwkv_head_dim
+    return RWKVState(
+        wkv=torch.zeros((batch, nh, dh, dh), dtype=dtype, device=device),
+        shift_t=torch.zeros((batch, d), dtype=dtype, device=device),
+        shift_c=torch.zeros((batch, d), dtype=dtype, device=device))

@@ -1,0 +1,300 @@
+"""Unified decoder-only LM covering dense / MoE / SSM / hybrid / VLM archs.
+
+The layer stack is described by a repeating *pattern* of LayerSpecs derived
+from the ModelConfig (gemma3: 5 local + 1 global; jamba: 1 attn + 7 mamba with
+alternating MoE; deepseek: leading dense layer then MLA+MoE; ...). The JAX
+package scans full pattern repeats over group-stacked parameters; here the
+stack is one flat `nn.ModuleList` in plan order (prefix, the groups' layers,
+suffix), and the cache is one list in the same order.
+
+Modality frontends are stubs: qwen2-vl consumes a precomputed patch-embedding
+prefix; whisper (encdec.py) consumes precomputed audio frame embeddings.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.attention import (KVCache, MLACache, gqa_apply,
+                                          gqa_init, mla_apply, mla_init)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (Params, dense_init, ffn_apply,
+                                       ffn_init, rms_norm)
+from repro_torch.models.moe import moe_ffn_local, moe_init
+from repro_torch.utils import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str   # attn | attn_local | mla | mamba | rwkv
+    ffn: str     # dense | moe | channel_mix
+
+
+@dataclasses.dataclass(frozen=True)
+class StackPlan:
+    prefix: tuple[LayerSpec, ...]
+    pattern: tuple[LayerSpec, ...]
+    num_groups: int
+    suffix: tuple[LayerSpec, ...]
+
+    @property
+    def num_layers(self) -> int:
+        return (len(self.prefix) + self.num_groups * len(self.pattern)
+                + len(self.suffix))
+
+    def layers(self) -> list[LayerSpec]:
+        """Every layer's spec in plan order."""
+        return (list(self.prefix) + list(self.pattern) * self.num_groups
+                + list(self.suffix))
+
+
+def build_plan(cfg: ModelConfig) -> StackPlan:
+    L = cfg.num_layers
+    if cfg.ssm_type == "rwkv6":
+        spec = LayerSpec("rwkv", "channel_mix")
+        return StackPlan((), (spec,), L, ())
+    if cfg.family == "hybrid":  # jamba: attn at pos 0, mamba at 1..p-1
+        p = cfg.attn_layer_period
+        pattern = []
+        for j in range(p):
+            mixer = "attn" if j == 0 else "mamba"
+            ffn = "moe" if (cfg.moe_num_experts and j % cfg.moe_layer_period
+                            == cfg.moe_layer_period - 1) else "dense"
+            pattern.append(LayerSpec(mixer, ffn))
+        if L % p:
+            raise ValueError(f"{cfg.name}: layers {L} % period {p} != 0")
+        return StackPlan((), tuple(pattern), L // p, ())
+    mixer = "mla" if cfg.attn_type == "mla" else "attn"
+    ffn = "moe" if cfg.moe_num_experts else "dense"
+    prefix = tuple(LayerSpec(mixer, "dense")
+                   for _ in range(cfg.moe_first_dense))
+    rest = L - len(prefix)
+    if cfg.local_global_period:  # gemma3: 5 local + 1 global
+        p = cfg.local_global_period
+        pattern = tuple(LayerSpec("attn_local" if j < p - 1 else "attn", ffn)
+                        for j in range(p))
+        groups, rem = divmod(rest, p)
+        suffix = pattern[:rem]
+        return StackPlan(prefix, pattern, groups, suffix)
+    return StackPlan(prefix, (LayerSpec(mixer, ffn),), rest, ())
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init/apply
+# ---------------------------------------------------------------------------
+
+def _layer_init(cfg: ModelConfig, spec: LayerSpec, *, generator,
+                device) -> dict:
+    kw = {"generator": generator, "device": device}
+    p: dict[str, Any] = {
+        "norm1": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                             device=device),
+        "norm2": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                             device=device)}
+    if spec.mixer in ("attn", "attn_local"):
+        p["mixer"] = gqa_init(cfg, **kw)
+    elif spec.mixer == "mla":
+        p["mixer"] = mla_init(cfg, **kw)
+    elif spec.mixer == "mamba":
+        p["mixer"] = ssm_lib.mamba_init(cfg, **kw)
+    elif spec.mixer == "rwkv":
+        p["mixer"] = ssm_lib.rwkv_init(cfg, **kw)
+    else:
+        raise ValueError(spec.mixer)
+    if spec.ffn == "dense":
+        p["ffn"] = ffn_init(cfg.d_model, cfg.d_ff, cfg.ffn_act,
+                            cfg.torch_dtype, **kw)
+    elif spec.ffn == "moe":
+        p["ffn"] = moe_init(cfg, **kw)
+    elif spec.ffn == "channel_mix":
+        p["ffn"] = ssm_lib.rwkv_channel_mix_init(cfg, **kw)
+    else:
+        raise ValueError(spec.ffn)
+    return p
+
+
+def _layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, s_max: int,
+                 dtype, device) -> Any:
+    if spec.mixer in ("attn", "attn_local"):
+        # attn_local keeps a full-length cache, not a window-sized ring,
+        # so positions stay plain (a ring would halve local-layer caches)
+        shape = (batch, s_max, cfg.num_kv_heads, cfg.hd)
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device))
+    if spec.mixer == "mla":
+        return MLACache(
+            ckv=torch.zeros((batch, s_max, cfg.kv_lora_rank), dtype=dtype,
+                            device=device),
+            krope=torch.zeros((batch, s_max, cfg.qk_rope_dim), dtype=dtype,
+                              device=device))
+    if spec.mixer == "mamba":
+        return ssm_lib.mamba_zero_state(cfg, batch, device=device)
+    if spec.mixer == "rwkv":
+        return ssm_lib.rwkv_zero_state(cfg, batch, device=device)
+    raise ValueError(spec.mixer)
+
+
+def _layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
+                 *, positions, cache=None, cache_pos=None):
+    h = rms_norm(x, params["norm1"], cfg.norm_eps)
+    if spec.mixer in ("attn", "attn_local"):
+        window = cfg.sliding_window if spec.mixer == "attn_local" else 0
+        out, _ = gqa_apply(params["mixer"], cfg, h, positions=positions,
+                           window=window, cache=cache, cache_pos=cache_pos)
+    elif spec.mixer == "mla":
+        out, _ = mla_apply(params["mixer"], cfg, h, positions=positions,
+                           cache=cache, cache_pos=cache_pos)
+    elif spec.mixer == "mamba":
+        out, _ = ssm_lib.mamba_apply(params["mixer"], cfg, h, state=cache)
+    elif spec.mixer == "rwkv":
+        out, (wkv, shift) = ssm_lib.rwkv_time_mix(params["mixer"], cfg, h,
+                                                  state=cache)
+        if cache is not None:
+            cache.wkv.copy_(wkv)
+            cache.shift_t.copy_(shift)
+    else:
+        raise ValueError(spec.mixer)
+    x = x + out        # (pspec.constrain_activation stood here)
+
+    h = rms_norm(x, params["norm2"], cfg.norm_eps)
+    if spec.ffn == "dense":
+        f = ffn_apply(params["ffn"], h, cfg.ffn_act)
+    elif spec.ffn == "moe":
+        b, s, d = h.shape
+        # single device: the local path (the JAX package's shard_map branch
+        # for a `model` mesh axis comes with the SPMD layer)
+        f = moe_ffn_local(params["ffn"], cfg, h.reshape(b * s, d))
+        f = f.reshape(b, s, d)
+    elif spec.ffn == "channel_mix":
+        shift_c = cache.shift_c if cache is not None else None
+        f, new_shift = ssm_lib.rwkv_channel_mix(params["ffn"], h, shift_c)
+        if cache is not None:
+            cache.shift_c.copy_(new_shift)
+    else:
+        raise ValueError(spec.ffn)
+    return x + f, cache   # (pspec.constrain_activation stood here)
+
+
+# ---------------------------------------------------------------------------
+# The LM
+# ---------------------------------------------------------------------------
+
+class TransformerLM(nn.Module):
+    """`TransformerLM(cfg, device=..., seed=...)` makes random weights on
+    `device` from a `torch.Generator`, layer by layer (the peak stays near
+    the model's own bytes); `repro_torch.convert.load_reference_params`
+    loads the JAX package's weights instead. `device="meta"` builds the
+    shapes alone. Parameters: `embed`, `final_norm`, `lm_head` (untied),
+    `layers.{i}.*` in plan order."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = build_plan(cfg)
+        self.specs = self.plan.layers()
+        device = resolve_device(device)
+        gen = (None if device.type == "meta"
+               else torch.Generator(device=device).manual_seed(seed))
+        kw = {"generator": gen, "device": device}
+        dt = cfg.torch_dtype
+        self.embed = nn.Parameter(dense_init(
+            (cfg.vocab_size, cfg.d_model), dt, scale=1.0, **kw))
+        self.final_norm = nn.Parameter(torch.zeros(
+            (cfg.d_model,), dtype=torch.float32, device=device))
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(dense_init(
+                (cfg.d_model, cfg.vocab_size), dt, **kw))
+        self.layers = nn.ModuleList(
+            Params(_layer_init(cfg, spec, **kw)) for spec in self.specs)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def init_cache(self, batch: int, s_max: int, dtype=None) -> list:
+        """One cache a layer in plan order: KVCache / MLACache in `dtype`
+        (default the config's), MambaState / RWKVState in f32."""
+        dtype = dtype or self.cfg.torch_dtype
+        return [_layer_cache(self.cfg, spec, batch, s_max, dtype,
+                             self.device) for spec in self.specs]
+
+    # -- forward -----------------------------------------------------------
+    def _embed(self, tokens, vision_embeds=None):
+        x = self.embed[tokens]
+        if vision_embeds is not None:
+            nv = vision_embeds.shape[1]
+            x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+        # sqrt(d_model) in f32, rounded to the activation dtype (a host
+        # number: no copy to the card)
+        scale = torch.tensor(float(np.sqrt(np.float32(self.cfg.d_model))),
+                             dtype=torch.float32).to(x.dtype)
+        return x * float(scale)
+
+    def _head(self):
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+    def _unembed(self, x):
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return x @ self._head()
+
+    def _run_stack(self, x, *, positions, cache=None, cache_pos=None):
+        for i, spec in enumerate(self.specs):
+            x, _ = _layer_apply(self.layers[i], self.cfg, spec, x,
+                                positions=positions,
+                                cache=None if cache is None else cache[i],
+                                cache_pos=cache_pos)
+        return x
+
+    def _positions(self, start: int, s: int) -> torch.Tensor:
+        return torch.arange(start, start + s, device=self.device)
+
+    def forward(self, tokens, *, vision_embeds=None):
+        """Teacher-forced logits. tokens: [B, S] -> [B, S, V]."""
+        x = self._embed(tokens, vision_embeds)
+        x = self._run_stack(x, positions=self._positions(0, tokens.shape[1]))
+        return self._unembed(x)
+
+    def loss(self, tokens, labels, *, vision_embeds=None,
+             vocab_chunk: int = 0):
+        """Mean next-token cross-entropy; optional seq-chunked unembed."""
+        s = tokens.shape[1]
+        x = self._embed(tokens, vision_embeds)
+        x = self._run_stack(x, positions=self._positions(0, s))
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        w = self._head()
+
+        def xent(h, y):
+            logits = (h @ w).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, y[..., None])[..., 0]
+            return logz - gold
+
+        if vocab_chunk and s % vocab_chunk == 0 and s > vocab_chunk:
+            losses = [xent(x[:, c:c + vocab_chunk],
+                           labels[:, c:c + vocab_chunk]).mean()
+                      for c in range(0, s, vocab_chunk)]
+            return torch.stack(losses).mean()
+        return xent(x, labels).mean()
+
+    @torch.no_grad()
+    def prefill(self, tokens, cache, *, vision_embeds=None):
+        """Fill the cache with a prompt (in place); returns (last-token
+        logits [B, 1, V], cache)."""
+        x = self._embed(tokens, vision_embeds)
+        x = self._run_stack(x, positions=self._positions(0, tokens.shape[1]),
+                            cache=cache, cache_pos=0)
+        return self._unembed(x[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, token, cache, cache_pos: int):
+        """One decode step. token: [B, 1]; cache_pos: the write index."""
+        x = self._embed(token)
+        x = self._run_stack(x, positions=self._positions(cache_pos, 1),
+                            cache=cache, cache_pos=cache_pos)
+        return self._unembed(x), cache
+

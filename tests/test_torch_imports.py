@@ -42,7 +42,17 @@ def test_walk_sees_the_package():
             "storage/pool/pool.py", "data/pipeline.py",
             "optim/optimizers.py", "runtime/trainer.py",
             "kernels/embedding_bag/grad.py", "examples/train_dlrm.py",
-            "examples/quickstart.py", "core/plan.py"} <= ported
+            "examples/quickstart.py", "core/plan.py",
+            "models/config.py", "models/layers.py", "models/attention.py",
+            "models/moe.py", "models/ssm.py", "models/transformer.py",
+            "models/encdec.py", "models/registry.py", "configs/__init__.py",
+            "configs/phi4_mini_3_8b.py", "configs/deepseek_v2_lite_16b.py",
+            "configs/jamba_1_5_large_398b.py", "configs/whisper_medium.py",
+            "examples/lm_inference.py", "roofline/hw.py",
+            "roofline/analyze.py", "roofline/report.py"} <= ported
+    configs = {f.name for f in (REPO / "src" / "repro" / "configs").glob(
+        "*.py")}
+    assert configs <= {f.name for f in FILES}
     sources = {f.name for f in (REPO / "src" / "repro_torch").rglob("*.cu")}
     assert {"embedding_bag.cu", "fused_lookup.cu"} <= sources
 
