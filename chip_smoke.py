@@ -32,6 +32,17 @@ and the script exits non-zero:
                   for `repro_torch.roofline.report` go to build/lm_roofline/
                   and the report's table is printed; no DLRM kernel
                   launches on this path
+  2d. spmd_lm_train  the SPMD layer on a one-card mesh ((1, 1) over an
+                  NCCL group of one rank, its file:// store under build/,
+                  up until spmd_dryrun): phi4-mini-3.8b at full width and
+                  depth in bf16 through `launch.steps.make_lm_train_step`
+                  (AdamW, remat, vocab_chunk 512), batch 1 x 4096 tokens
+                  (train_4k's per-chip share), 5 steps on one batch: the
+                  first step's loss against the plain step's (no mesh,
+                  plain tensors) within 1e-3 relative, the updated
+                  parameters bit for bit, a falling loss, finite parameters;
+                  step p50, tokens/s, share of the bf16 peak, peak memory,
+                  a sixth step profiled
   3. parity       kernel vs its plain version (ref.embedding_bag_ref) on the
                   card: sum/mean, weights on/off, num_hot 0/>0, f32/bf16,
                   ragged B at every bags-per-block value, vector and scalar
@@ -65,6 +76,9 @@ and the script exits non-zero:
                   shrink rung down to 32; sheds, levels,
                   batch sizes, one bag launch per forward, a sample
                   batch's logits against the plain path
+  6d. spmd_dlrm (serve)  `make_dlrm_serve_step` over serve's tables,
+                  wrapped without a copy: batch 0's logits equal serve's
+                  bit for bit, one bag launch
   7. serve_tiered the same weights and the first 2 of those batches on the
                   `tiered` backend (hot 50K + warm 50K rows per table on
                   the card, the cold tier on the host, async prefetch); the
@@ -109,6 +123,16 @@ and the script exits non-zero:
   8c''. quickstart the port's quickstart on the card: the planner, then
                   the pinned hot-first lookup (one bag launch) against the
                   plain gather, max|err| < 1e-4
+  8f. spmd_dlrm (train)  `make_dlrm_train_step` at the train phase's
+                  wide widths (64 tables, batch 2048): one SGD step equal
+                  to the same step without a mesh bit for bit (loss and
+                  every parameter, deterministic algorithms), as many bag
+                  launches as the plain step
+  8g. spmd_dryrun `python -m repro_torch.launch.dryrun` for three cells
+                  (phi4-mini and deepseek-v2-lite train_4k, dlrm-production
+                  serve) in parallel processes on a fake group of 256
+                  ranks, no card: each `ok`, per-device bytes, dominant
+                  term, deepseek's expert all-to-all counted
   8d. serve_sharded  full width, 64 tables: the `device` reference, then
                   the `sharded` backend on 4 shards (serve_tiered's tiers,
                   contiguous placement): 2 batches of 2048, logits ==
@@ -141,9 +165,10 @@ and the script exits non-zero:
 
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
 `--stop-after PHASE` ends the run after that phase (build, lm_zoo,
-lm_serve, parity_fused, kernel_time, kernel_diag, replay_device,
-replay_tiered, quickstart, serve_sharded, serve_pool, replay_tenants; a
-short first call for a new kernel or the LM path); the
+lm_serve, spmd_lm_train, parity_fused, kernel_time, kernel_diag,
+replay_device, replay_tiered, quickstart, spmd_dlrm, spmd_dryrun,
+serve_sharded, serve_pool, replay_tenants; a short first call for a new
+kernel or the LM path); the
 result lines are then not printed. The pool phase's workers are spawned
 processes that import this file again as `__mp_main__`: its module level
 does no work.
@@ -186,8 +211,16 @@ from repro_torch.kernels.embedding_bag.grad import embedding_bag_backward  # noq
 from repro_torch.models import (DLRM, abstract_params, build_model,  # noqa: E402
                                 build_plan, model_flops)
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
+from repro_torch.launch.steps import (distribute_inputs,  # noqa: E402
+                                      make_dlrm_serve_step,
+                                      make_dlrm_train_step,
+                                      make_lm_train_step)
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models.dlrm import bce_with_logits  # noqa: E402
-from repro_torch.optim import rowwise_adagrad_update, sgdm_update  # noqa: E402
+from repro_torch.optim import (adamw_lowmem_init,  # noqa: E402
+                               adamw_lowmem_update, rowwise_adagrad_update,
+                               sgdm_update)
 from repro_torch.ps import PSConfig  # noqa: E402
 from repro_torch.roofline import report as lm_report  # noqa: E402
 from repro_torch.roofline.analyze import OpCost, roofline_terms  # noqa: E402
@@ -198,6 +231,7 @@ from repro_torch.serving import (ArbiterConfig, BatcherConfig,  # noqa: E402
                                  TenantSpec, UpdateConfig, configure)
 from repro_torch.traffic import (TimedQuery, VirtualClock,  # noqa: E402
                                  make_traffic, replay, replay_tenants)
+from repro_torch.utils import read_json, tree_finite  # noqa: E402
 from repro_torch.utils import write_json  # noqa: E402
 
 SERVE_BATCHES = 3
@@ -327,6 +361,23 @@ LM_SERVE_BATCHES, LM_SERVE_PROMPT, LM_SERVE_STEPS = (1, 8), 512, 64
 LM_PROFILED_STEPS, LM_PROFILED_TOP = 8, 10   # steps; ops listed by time
 LM_DEEPSEEK_LAYERS, LM_DEEPSEEK_BATCH, LM_DROPLESS_FACTOR = 4, 8, 64.0
 LM_ROOFLINE_DIR = os.path.join(ROOT, "build", "lm_roofline")
+# spmd phases: a one-card mesh (1, 1) over an NCCL group of one rank whose
+# file:// store lives under build/. spmd_lm_train: phi4-mini-3.8b at full
+# width and depth in bf16, the per-chip share of train_4k (256 sequences
+# over 256 chips: 1 x 4096 tokens), 5 AdamW steps on one repeated batch;
+# the first step's loss against the plain step's within the JAX test's
+# 1e-3 relative. spmd_dlrm: the serve step over the device serve phase's
+# tables (logits bit for bit), one SGD step at the train phase's wide
+# widths (bit for bit under deterministic algorithms). spmd_dryrun: three
+# production-mesh cells in subprocesses, in parallel
+SPMD_STORE = os.path.join(ROOT, "build", "chip_smoke_spmd_store")
+SPMD_LM_ARCH, SPMD_LM_SEQ, SPMD_LM_STEPS = "phi4-mini-3.8b", 4096, 5
+SPMD_LOSS_RTOL = 1e-3
+SPMD_DLRM_LR = 0.01
+SPMD_DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k"),
+                     ("deepseek-v2-lite-16b", "train_4k"),
+                     ("dlrm-production", "serve"))
+SPMD_DRYRUN_DIR = os.path.join(ROOT, "build", "chip_smoke_dryrun")
 
 
 def emit(phase: str, **fields) -> None:
@@ -3202,14 +3253,14 @@ def _lm_time(model, cfg, batch: int, failed: list, name: str,
     return out
 
 
-def _profiled_busy_ms(decode, first) -> dict:
+def _profiled_busy_ms(decode, first, steps: int = LM_PROFILED_STEPS) -> dict:
     """The device's busy time a decode step: the sum of its kernels' own
-    device time over 8 profiled steps (torch.profiler), or why not."""
+    device time over `steps` profiled steps (torch.profiler), or why not."""
     try:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            decode(first, LM_PROFILED_STEPS)
+            decode(first, steps)
             torch.cuda.synchronize()
         # the device's own entries (kernels, copies) give the busy time;
         # the host ops' self device time attributes it to aten ops
@@ -3227,11 +3278,9 @@ def _profiled_busy_ms(decode, first) -> dict:
         return {"busy_ms_per_step": None,
                 "error": "key_averages() shows no device time"}
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:LM_PROFILED_TOP]
-    return {"busy_ms_per_step": us / 1e3 / LM_PROFILED_STEPS,
-            "steps": LM_PROFILED_STEPS,
-            "ops_ms_per_step": sum(by_op.values()) / 1e3 / LM_PROFILED_STEPS,
-            "top_ops_ms_per_step": {k: v / 1e3 / LM_PROFILED_STEPS
-                                    for k, v in top}}
+    return {"busy_ms_per_step": us / 1e3 / steps, "steps": steps,
+            "ops_ms_per_step": sum(by_op.values()) / 1e3 / steps,
+            "top_ops_ms_per_step": {k: v / 1e3 / steps for k, v in top}}
 
 
 def _lm_records(arch: str, cfg, batch: int, timed: dict, cost: dict,
@@ -3371,6 +3420,288 @@ def phase_lm_serve(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The SPMD layer on a one-card mesh
+# ---------------------------------------------------------------------------
+
+def spmd_group():
+    """The default NCCL process group of one rank over a file:// store
+    under build/, and the (1, 1) debug mesh on it, on the card."""
+    import torch.distributed as dist
+    os.makedirs(os.path.dirname(SPMD_STORE), exist_ok=True)
+    if os.path.exists(SPMD_STORE):
+        os.remove(SPMD_STORE)
+    dist.init_process_group("nccl", init_method=f"file://{SPMD_STORE}",
+                            world_size=1, rank=0)
+    return make_debug_mesh((1, 1), device_type="cuda")
+
+
+def end_spmd_group() -> None:
+    """Destroy the spmd phases' process group, if one is up."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _lm_batch(cfg, seq: int, dev) -> tuple:
+    g = torch.Generator().manual_seed(20)
+    toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), generator=g)
+    return toks[:, :-1].to(dev), toks[:, 1:].to(dev)
+
+
+def _plain_lm_step(cfg, dev, tokens, labels) -> tuple:
+    """The train step without a mesh: `TransformerLM.loss` (remat,
+    vocab_chunk 512, as `make_lm_train_step`'s) + autograd +
+    `adamw_lowmem_update`, on plain tensors. Returns (the first step's
+    loss, the parameters it updated, on the host, and the seconds of a
+    second step)."""
+    model = build_model(cfg, device=dev, seed=0)
+    params = {n: q for n, q in model.named_parameters() if q.requires_grad}
+    opt = adamw_lowmem_init(params)
+
+    def step():
+        loss = model.loss(tokens, labels, remat=True, vocab_chunk=512)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        adamw_lowmem_update(params, dict(zip(params, grads)), opt, lr=1e-4)
+        return float(loss)
+    first = step()
+    host = {n: q.detach().to("cpu", copy=True) for n, q in params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    return first, host, time.perf_counter() - t0
+
+
+def _max_abs_diff(model, host: dict) -> float:
+    """max |d| of `model`'s parameters (DTensors) against host copies;
+    bitwise-equal tensors (the expected case) skip the f32 arithmetic."""
+    diff = 0.0
+    for n, q in model.named_parameters():
+        if n not in host:
+            continue
+        got = q.to_local().detach().cpu()
+        if not torch.equal(got, host[n]):
+            diff = max(diff, float((got.float() - host[n].float())
+                                   .abs().max()))
+    return diff
+
+
+def phase_spmd_lm_train(mesh, smi: str) -> dict:
+    """`make_lm_train_step` on the one-card mesh: phi4-mini at full width
+    and depth in bf16, batch 1 x SPMD_LM_SEQ tokens, SPMD_LM_STEPS steps
+    on one batch; the first against the plain step (deterministic
+    algorithms): the loss within SPMD_LOSS_RTOL, the updated parameters
+    bit for bit (the same aten ops on one card)."""
+    dev = torch.device("cuda")
+    cfg, seq, steps = get_config(SPMD_LM_ARCH), SPMD_LM_SEQ, SPMD_LM_STEPS
+    failed: list = []
+    tokens, labels = _lm_batch(cfg, seq, dev)
+    shape = ShapeConfig("train_4k_per_chip", seq, 1, "train")
+    out = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+           "batch": 1, "seq": seq, "steps": steps, "nvidia_smi": smi,
+           "loss_tolerance": f"rtol {SPMD_LOSS_RTOL}"}
+    with deterministic_algorithms():
+        t0 = time.perf_counter()
+        plain_loss, plain_params, plain_s = _plain_lm_step(cfg, dev, tokens,
+                                                           labels)
+        out["plain_phase_s"] = time.perf_counter() - t0
+        out["plain_step_ms"] = plain_s * 1e3
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, seed=0)
+        bundle = make_lm_train_step(cfg, shape, mesh, model=model)
+        batch = distribute_inputs({"tokens": tokens, "labels": labels},
+                                  bundle.in_shardings[2], mesh)
+        _, opt, _ = bundle.inputs
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        out["parallel_mode"] = bundle.meta["parallel_mode"]
+        losses, step_s = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            loss, model, opt = bundle.fn(model, opt, batch)
+            losses.append(float(loss.full_tensor()))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if i == 0:
+                diff = _max_abs_diff(model, plain_params)
+                del plain_params
+        out["profiled_step"] = _profiled_busy_ms(   # one more, apart
+            lambda _first, n: [bundle.fn(model, opt, batch)
+                               for _ in range(n)], None, steps=1)
+    rel = abs(losses[0] - plain_loss) / max(abs(plain_loss), 1e-9)
+    p50 = float(np.median(step_s[1:])) if steps > 1 else step_s[0]
+    flops = model_flops(cfg, seq, "train")
+    finite = tree_finite(dict(model.named_parameters()))
+    out.update(
+        losses=losses, plain_first_loss=plain_loss,
+        first_loss_rel_diff=rel, first_step_params_max_abs_diff=diff,
+        step_s=step_s, step_p50_ms=p50 * 1e3, tokens_per_s=seq / p50,
+        model_flops=flops, mfu_bf16=flops / p50 / PEAK_FLOPS_BF16,
+        params_finite=finite,
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    expect(failed, rel <= SPMD_LOSS_RTOL,
+           f"first loss {losses[0]} vs plain {plain_loss} (rel {rel})")
+    expect(failed, diff == 0.0,
+           f"first step's parameters differ from the plain step's: max "
+           f"|d| {diff}")
+    expect(failed, losses[-1] < losses[0], f"loss did not fall: {losses}")
+    expect(failed, finite, "a parameter is not finite")
+    out["failed"] = failed
+    del model, opt, bundle, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spmd_dlrm_serve(mesh, model, dense, idx, want_logits) -> dict:
+    """`make_dlrm_serve_step` over `model`'s own tables, wrapped without a
+    copy (a twin module shares them; `model` stays plain): the logits
+    against the serve phase's for the same batch, bit for bit, and one bag
+    launch a forward."""
+    failed: list = []
+    twin = DLRM(model.cfg, device=model.device, tables=model.ebc.tables)
+    twin.bottom.load_state_dict(model.bottom.state_dict())
+    twin.top.load_state_dict(model.top.state_dict())
+    table_ptr = model.ebc.tables.data_ptr()
+    bundle = make_dlrm_serve_step(model.cfg, mesh, batch=dense.shape[0],
+                                  model=twin)
+    wrapped = twin.ebc.tables.to_local().data_ptr() == table_ptr
+    batch = distribute_inputs(
+        {"dense": torch.from_numpy(dense).to(model.device),
+         "indices": torch.from_numpy(idx).to(model.device)},
+        bundle.in_shardings[1], mesh)
+    launches0 = kernel.LAUNCHES
+    t0 = time.perf_counter()
+    logits = bundle.fn(twin, batch).full_tensor()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = kernel.LAUNCHES - launches0
+    got = logits.cpu().numpy()
+    equal = bool(np.array_equal(got, want_logits))
+    expect(failed, wrapped, "the tables were copied, not wrapped")
+    expect(failed, equal, "spmd logits differ from the serve phase's: max "
+           f"|d| {float(np.abs(got - want_logits).max())}")
+    expect(failed, launches == 1, f"{launches} bag launches in one forward")
+    del twin, bundle, batch
+    return {"batch": int(dense.shape[0]), "tables_wrapped": wrapped,
+            "logits_equal": equal, "max_abs_diff": float(
+                np.abs(got - want_logits).max()),
+            "bag_launches": launches, "forward_ms_first": ms,
+            "failed": failed}
+
+
+def phase_spmd_dlrm_train(mesh, cfg, pattern, *, tables: int =
+                          TRAIN_WIDE_TABLES, batch: int = TRAIN_WIDE_BATCH
+                          ) -> dict:
+    """`make_dlrm_train_step` at the train phase's wide widths, one SGD
+    step, against the same step without a mesh (deterministic algorithms):
+    the loss and every updated parameter bit for bit."""
+    dev = torch.device("cuda")
+    failed: list = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    emb = dataclasses.replace(cfg.embedding, num_tables=tables,
+                              shard_pad_tables=0)
+    cfg_w = dataclasses.replace(cfg, embedding=emb)
+    rng = np.random.default_rng(9)
+    dense = torch.from_numpy(rng.standard_normal(
+        (batch, cfg.dense_features), dtype=np.float32)).to(dev)
+    idx = torch.from_numpy(sample_indices(pattern, batch, tables,
+                                          emb.pooling, seed=90)).to(dev)
+    labels = torch.from_numpy((rng.random(batch) < 0.2).astype(
+        np.float32)).to(dev)
+    with deterministic_algorithms():
+        plain = DLRM(cfg_w, device=dev, seed=7)
+        plain.ebc.tables.requires_grad_(True)
+        named = dict(plain.named_parameters())
+        named["ebc.tables"] = plain.ebc.tables
+        launches0 = kernel.LAUNCHES
+        loss_p = plain.loss(dense, idx, labels)
+        grads = torch.autograd.grad(loss_p, list(named.values()))
+        with torch.no_grad():
+            for q, g in zip(named.values(), grads):
+                q.sub_(SPMD_DLRM_LR * g)
+        del grads
+        plain_launches = kernel.LAUNCHES - launches0
+        spmd = DLRM(cfg_w, device=dev, seed=7)
+        bundle = make_dlrm_train_step(cfg_w, mesh, batch=batch, model=spmd,
+                                      lr=SPMD_DLRM_LR)
+        inputs = distribute_inputs(
+            {"dense": dense, "indices": idx, "labels": labels},
+            bundle.in_shardings[1], mesh)
+        launches0 = kernel.LAUNCHES
+        t0 = time.perf_counter()
+        loss_s, spmd = bundle.fn(spmd, inputs)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernel.LAUNCHES - launches0
+    got = dict(spmd.named_parameters())
+    got["ebc.tables"] = spmd.ebc.tables
+    unequal = [n for n, q in named.items()
+               if not torch.equal(got[n].to_local().detach(), q.detach())]
+    loss_equal = float(loss_s.full_tensor()) == float(loss_p)
+    expect(failed, loss_equal,
+           f"loss {float(loss_s.full_tensor())} vs plain {float(loss_p)}")
+    expect(failed, not unequal, f"parameters differ: {unequal}")
+    expect(failed, launches == plain_launches >= 1,
+           f"{launches} bag launches in the spmd step, {plain_launches} in "
+           "the plain one")
+    out = {"tables": tables, "batch": batch, "loss": float(loss_p),
+           "loss_equal": loss_equal, "params_unequal": unequal,
+           "bag_launches": launches, "plain_bag_launches": plain_launches,
+           "step_ms_first": step_ms, "failed": failed}
+    del plain, spmd, bundle, inputs, named, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spmd_dryrun() -> dict:
+    """The production-mesh dry-run of three cells, each in its own process
+    (a fake group of 256 ranks, meta tensors, no card), all at once."""
+    failed: list = []
+    shutil.rmtree(SPMD_DRYRUN_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = [(arch, shape, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", SPMD_DRYRUN_DIR], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for arch, shape in SPMD_DRYRUN_CELLS]
+    cells = {}
+    for arch, shape, proc in procs:
+        try:
+            log, _ = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        tag = f"{arch}__{shape}__single"
+        path = os.path.join(SPMD_DRYRUN_DIR, tag + ".json")
+        rec = read_json(path) if os.path.exists(path) else {}
+        status = rec.get("status", "missing")
+        cell = {"status": status, "rc": proc.returncode}
+        if status == "ok":
+            r, m = rec["roofline"], rec["memory"]
+            cell.update(per_device_bytes=m["per_device_total"],
+                        fits_80GB_HBM=m["fits_80GB_HBM"],
+                        dominant=r["dominant"],
+                        per_device_flops=r["per_device_flops"],
+                        collective_breakdown=r["collective_breakdown"],
+                        torch=rec["torch"], seconds=rec["compile_s"])
+        else:
+            cell["log_tail"] = log[-1500:]
+        cells[tag] = cell
+        expect(failed, status == "ok", f"dryrun {tag}: {status}")
+    ds = cells.get("deepseek-v2-lite-16b__train_4k__single", {})
+    expect(failed, "all_to_all_single" in ds.get("collective_breakdown", {}),
+           "deepseek's expert all-to-all is not counted")
+    return {"cells": cells, "failed": failed}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--stop-after", default=None,
@@ -3403,6 +3734,7 @@ def main() -> int:
 
     def stop(phase: str) -> bool:
         if args.stop_after == phase:
+            end_spmd_group()
             emit("stopped", after=phase,
                  seconds=time.perf_counter() - t_all)
         return args.stop_after == phase
@@ -3438,6 +3770,15 @@ def main() -> int:
     lm_report.main(["--dir", LM_ROOFLINE_DIR])
     check(not lm["failed"], f"lm_serve: {lm['failed']}")
     if stop("lm_serve"):
+        return 0
+
+    # 2d. spmd_lm_train: the LM train step on the one-card mesh
+    t0 = time.perf_counter()
+    mesh = spmd_group()
+    spmd_lm = phase_spmd_lm_train(mesh, smi)
+    emit("spmd_lm_train", **spmd_lm, seconds=time.perf_counter() - t0)
+    check(not spmd_lm["failed"], f"spmd_lm_train: {spmd_lm['failed']}")
+    if stop("spmd_lm_train"):
         return 0
 
     # 3. parity
@@ -3602,6 +3943,14 @@ def main() -> int:
     if stop("replay_device"):
         return 0
 
+    # 6d. spmd_dlrm (serve): the DLRM serve step over serve's tables
+    t0 = time.perf_counter()
+    spmd_serve = phase_spmd_dlrm_serve(mesh, model, batches[0][0],
+                                       batches[0][1], logits[:B])
+    emit("spmd_dlrm", part="serve", **spmd_serve,
+         seconds=time.perf_counter() - t0)
+    check(not spmd_serve["failed"], f"spmd_dlrm: {spmd_serve['failed']}")
+
     # 7. serve_tiered: the same weights and batches on the tiered backend
     t0 = time.perf_counter()
     n_tiered = SERVE_TIERED_BATCHES
@@ -3646,6 +3995,24 @@ def main() -> int:
     quick = phase_quickstart()
     emit("quickstart", **quick, seconds=time.perf_counter() - t0)
     if stop("quickstart"):
+        return 0
+
+    # 8f. spmd_dlrm (train): one SGD step at the wide widths
+    t0 = time.perf_counter()
+    spmd_train = phase_spmd_dlrm_train(mesh, cfg, pattern)
+    emit("spmd_dlrm", part="train", **spmd_train,
+         seconds=time.perf_counter() - t0)
+    check(not spmd_train["failed"], f"spmd_dlrm: {spmd_train['failed']}")
+    if stop("spmd_dlrm"):
+        return 0
+
+    # 8g. spmd_dryrun: three production-mesh cells, no card
+    t0 = time.perf_counter()
+    dry = phase_spmd_dryrun()
+    end_spmd_group()
+    emit("spmd_dryrun", **dry, seconds=time.perf_counter() - t0)
+    check(not dry["failed"], f"spmd_dryrun: {dry['failed']}")
+    if stop("spmd_dryrun"):
         return 0
 
     # 8d. serve_sharded: 4 shards, the law, a live migration
@@ -3702,6 +4069,8 @@ def main() -> int:
             launches_train=train["small"]["launches"],
             launches_train_wide=train["wide"]["launches"],
             launches_quickstart=quick["launches"],
+            launches_spmd_serve=spmd_serve["bag_launches"],
+            launches_spmd_train=spmd_train["bag_launches"],
             launches_sharded=sharded["before_migration"]["bag_launches"],
             launches_sharded_migrated=sharded["after_migration"][
                 "bag_launches"],

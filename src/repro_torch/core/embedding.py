@@ -143,6 +143,10 @@ class EmbeddingBagCollection(nn.Module):
             self.register_buffer("tables", tables.to(
                 device if resident else "cpu"))
             return
+        if device.type == "meta":        # shapes only (the dry-run)
+            self.register_buffer("tables", torch.empty(
+                shape, dtype=cfg.torch_dtype, device=device))
+            return
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         # N(0, 1/D) rows, made on the generator's device: a device-resident

@@ -6,9 +6,12 @@ one query against the KV cache directly. Plain torch ops: no library
 attention kernel, so the masks, the chunking and the f32 accumulation are
 the JAX package's.
 
-Caches are tensors written in place at `cache_pos` (a Python int); each
-call still returns its cache. The JAX package's `pspec.constrain_*` calls
-(sharding hints, identities on one device) are left out where they stood.
+Caches are tensors written in place at `cache_pos` (a Python int,
+`pspec.write_at`); each call still returns its cache. The `pspec`
+cache constraints stand where the JAX package has them: identities
+without an active mesh, redistributions of DTensors under one. Its
+decode-score hints have no counterpart: the port's decode scores are
+plain tensors inside the per-rank region.
 """
 from __future__ import annotations
 
@@ -17,8 +20,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import pspec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, split_heads
+from repro_torch.models.pspec import P
+from repro_torch.utils import shard_map_compat
 
 NEG_INF = -1e30   # not -inf: a fully masked chunk must not give NaN
 
@@ -36,7 +42,8 @@ def _f32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
-                      q_offset=0, kv_len=None, chunk: int = 512):
+                      q_offset=0, kv_len=None, chunk: int = 512,
+                      seq_groups=(), kv_offset: int = 0, kv_total=None):
     """Online-softmax attention, O(chunk) score memory.
 
     q: [B, Sq, KV, G, hd_qk]   (G = query heads per KV group)
@@ -44,7 +51,15 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     q_offset: position of q[0], an int or a 0-d tensor on q's device
     window: >0 => only attend to kpos in (qpos-window, qpos]
     kv_len: optional int; kpos >= kv_len masked out (decode w/ cache)
+    seq_groups, kv_offset, kv_total: set by the per-rank region of a
+      decode step whose cache is sharded along the sequence: this rank's
+      keys start at kv_offset of kv_total, and the softmax is combined
+      over the process groups in seq_groups
     """
+    if pspec.is_dtensor(q):
+        return _attention_per_rank(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_len=kv_len,
+                                   chunk=chunk)
     b, sq, nkv, g, hd = q.shape
     hd_v = v.shape[-1]
     skv = k.shape[1]
@@ -57,18 +72,31 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     qf = q.float() * scale
 
     if sq == 1:
-        # Decode fast path: one query against the whole cache, no chunks.
+        # Decode fast path: one query against the whole cache, no chunks
+        # (over sequence shards: sequence-parallel flash-decode)
         s = _f32_einsum("bqkgh,bskh->bqkgs", qf.to(k.dtype), k)
-        kpos = torch.arange(skv, device=dev)
-        mask = kpos < (kv_len if kv_len is not None else skv)
+        kpos = kv_offset + torch.arange(skv, device=dev)
+        mask = kpos < (kv_len if kv_len is not None else kv_total or skv)
         if causal:
             mask &= kpos <= qpos[0]
         if window > 0:
             mask &= kpos > qpos[0] - window
         s = torch.where(mask[None, None, None, None, :], s, NEG_INF)
-        p = torch.softmax(s, dim=-1)
+        if not seq_groups:
+            p = torch.softmax(s, dim=-1)
+            out = _f32_einsum("bqkgs,bskh->bqkgh", p.to(v.dtype), v)
+            return out.to(q.dtype)
+        from torch.distributed import _functional_collectives as funcol
+        m = s.amax(dim=-1, keepdim=True)
+        for group in seq_groups:
+            m = funcol.all_reduce(m, "max", group)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
         out = _f32_einsum("bqkgs,bskh->bqkgh", p.to(v.dtype), v)
-        return out.to(q.dtype)
+        for group in seq_groups:
+            l = funcol.all_reduce(l, "sum", group)
+            out = funcol.all_reduce(out, "sum", group)
+        return (out / l.squeeze(-1)[..., None]).to(q.dtype)
 
     chunk = min(chunk, skv)
     n_chunks = -(-skv // chunk)
@@ -103,6 +131,63 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.to(q.dtype)
 
 
+def _rows_times(c, w):
+    """c [B, S, r] @ w [r, n]. A DTensor `c` sharded on both B and S (a
+    batch- and sequence-sharded cache) is one DTensor cannot flatten for
+    the product (torch 2.11 refuses the view): each rank multiplies its
+    own rows by the whole w (gathered: the up-projections are small)."""
+    if not pspec.is_dtensor(c):
+        return c @ w
+    spec = pspec.spec_of(c)
+    if spec[0] is None or spec[1] is None:
+        return c @ w
+    rows = P(spec[0], spec[1], None)
+
+    @shard_map_compat(mesh=c.device_mesh, in_specs=(rows, P()),
+                      out_specs=rows)
+    def run(c_l, w_l):
+        return c_l @ w_l
+
+    return run(c, w)
+
+
+def _attention_per_rank(q, k, v, **kw):
+    """Attention on DTensors: a `shard_map_compat` region over q's batch
+    and KV-head shards, in which each rank attends its own sequences and
+    heads (DTensor's propagation through the chunk loop's einsums
+    replicates products that divide, and torch 2.11 refuses the decode
+    einsum's views). Prefill and train take k and v whole along the
+    sequence (a sequence-sharded cache is gathered for them); a decode
+    step keeps the cache's sequence shards and combines the softmax
+    across them (`chunked_attention`'s `seq_groups`)."""
+    b_ax, kv_ax = pspec.region_axes(q, 2)
+    mesh = q.device_mesh
+    s_ax = None
+    if q.shape[1] == 1:
+        used = {a for e in (b_ax, kv_ax) if e
+                for a in (e if isinstance(e, tuple) else (e,))}
+        s_ax = pspec.spec_of(k)[1]
+        axes = s_ax if isinstance(s_ax, tuple) else (s_ax,)
+        if s_ax is None or used & set(axes):
+            s_ax = None
+    qs = P(b_ax, None, kv_ax, None, None)
+    ks = P(b_ax, s_ax, kv_ax, None)
+    names = list(mesh.mesh_dim_names)
+    s_dims = sorted(names.index(a) for a in (
+        () if s_ax is None else s_ax if isinstance(s_ax, tuple) else (s_ax,)))
+
+    @shard_map_compat(mesh=mesh, in_specs=(qs, ks, ks), out_specs=qs)
+    def run(q_l, k_l, v_l):
+        block = 0
+        for m in s_dims:
+            block = block * mesh.size(m) + mesh.get_coordinate()[m]
+        return chunked_attention(
+            q_l, k_l, v_l, seq_groups=[mesh.get_group(m) for m in s_dims],
+            kv_offset=block * k_l.shape[1], kv_total=k.shape[1], **kw)
+
+    return run(q, k, v)
+
+
 # ---------------------------------------------------------------------------
 # GQA block
 # ---------------------------------------------------------------------------
@@ -133,10 +218,10 @@ def gqa_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
     nkv = params["wk"].shape[1] // hd
     g = nh // nkv
 
-    q = (x @ params["wq"]).reshape(b, s, nh, hd)
+    q = split_heads(x @ params["wq"], nh, hd)
     if cross_kv is None:
-        k = (x @ params["wk"]).reshape(b, s, nkv, hd)
-        v = (x @ params["wv"]).reshape(b, s, nkv, hd)
+        k = split_heads(x @ params["wk"], nkv, hd)
+        v = split_heads(x @ params["wv"], nkv, hd)
         if use_rope:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
@@ -150,17 +235,18 @@ def gqa_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
     kv_len = None
     q_offset = positions[0]
     if cache is not None and cross_kv is None:
-        # (pspec.constrain_kv stood around these writes)
-        cache.k[:, cache_pos:cache_pos + s] = k.to(cache.k.dtype)
-        cache.v[:, cache_pos:cache_pos + s] = v.to(cache.v.dtype)
+        # into the cache's own buffers (a constrained copy would take the
+        # write); the constraint pins what the attention reads
+        pspec.write_at(cache.k, k, cache_pos)
+        pspec.write_at(cache.v, v, cache_pos)
         new_cache = cache
-        k, v = cache.k, cache.v
+        k, v = pspec.constrain_kv(cache.k), pspec.constrain_kv(cache.v)
         kv_len = cache_pos + s
 
-    qg = q.reshape(b, s, nkv, g, hd)
+    qg = pspec.reshape(q, (b, s, nkv, g, hd))
     out = chunked_attention(qg, k, v, causal=causal and cross_kv is None,
                             window=window, q_offset=q_offset, kv_len=kv_len)
-    out = out.reshape(b, s, nh * hd)
+    out = pspec.reshape(out, (b, s, nh * hd))
     return out @ params["wo"], new_cache
 
 
@@ -198,7 +284,7 @@ def mla_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
     nh = cfg.num_heads
     nope, rope_d, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
 
-    q = (x @ params["wq"]).reshape(b, s, nh, nope + rope_d)
+    q = split_heads(x @ params["wq"], nh, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -210,23 +296,23 @@ def mla_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
     kv_len = None
     q_offset = positions[0]
     if cache is not None:
-        # (pspec.constrain_mla stood around these writes)
-        cache.ckv[:, cache_pos:cache_pos + s] = ckv.to(cache.ckv.dtype)
-        cache.krope[:, cache_pos:cache_pos + s] = krope.to(cache.krope.dtype)
+        pspec.write_at(cache.ckv, ckv, cache_pos)
+        pspec.write_at(cache.krope, krope, cache_pos)
         new_cache = cache
-        ckv, krope = cache.ckv, cache.krope
+        ckv = pspec.constrain_mla(cache.ckv)
+        krope = pspec.constrain_mla(cache.krope)
         kv_len = cache_pos + s
 
     skv = ckv.shape[1]
     # Up-project the compressed cache (the materializing form; the absorbed
     # decode variant is not the reference's)
-    k_nope = (ckv @ params["k_up"]).reshape(b, skv, nh, nope)
-    v = (ckv @ params["v_up"]).reshape(b, skv, nh, vh)
+    k_nope = split_heads(_rows_times(ckv, params["k_up"]), nh, nope)
+    v = split_heads(_rows_times(ckv, params["v_up"]), nh, vh)
     k = torch.cat([k_nope, krope[:, :, None, :].expand(b, skv, nh, rope_d)],
                   dim=-1)
     qh = torch.cat([q_nope, q_rope], dim=-1)                    # [B,S,H,qk]
 
     out = chunked_attention(qh[:, :, :, None, :], k, v, causal=True,
                             q_offset=q_offset, kv_len=kv_len)
-    out = out.reshape(b, s, nh * vh)
+    out = pspec.reshape(out, (b, s, nh * vh))
     return out @ params["wo"], new_cache

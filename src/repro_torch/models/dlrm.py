@@ -16,8 +16,10 @@ import torch
 from torch import nn
 
 from repro_torch.core.embedding import EmbeddingBagCollection, EmbeddingStageConfig
+from repro_torch.models import pspec
 from repro_torch.models.layers import MLPTower
-from repro_torch.utils import resolve_device, torch_dtype
+from repro_torch.models.pspec import P
+from repro_torch.utils import resolve_device, shard_map_compat, torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +47,8 @@ class DLRM(nn.Module):
     """`DLRM(cfg, device=..., seed=...)` makes random weights on `device`
     from a `torch.Generator`; `repro_torch.convert.load_reference_params`
     loads the TPU path's weights instead, and `tables=` hands the
-    embedding collection existing tables. Submodules: `bottom`, `ebc`,
-    `top`."""
+    embedding collection existing tables; `device="meta"` builds the
+    shapes alone. Submodules: `bottom`, `ebc`, `top`."""
 
     def __init__(self, cfg: DLRMConfig, plans=None, *, device="cuda",
                  seed: int = 0, tables: torch.Tensor | None = None):
@@ -56,7 +58,8 @@ class DLRM(nn.Module):
                              "for dot interaction")
         self.cfg = cfg
         device = resolve_device(device)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = (None if device.type == "meta"      # shapes only
+               else torch.Generator(device=device).manual_seed(seed))
         dt = cfg.torch_dtype
         self.bottom = MLPTower((cfg.dense_features, *cfg.bottom_mlp), dt,
                                generator=gen, device=device)
@@ -76,7 +79,21 @@ class DLRM(nn.Module):
         return self.ebc.device
 
     def _interact(self, bottom_out: torch.Tensor, pooled: torch.Tensor):
-        """bottom_out: [B, D]; pooled: [B, T, D] -> interaction features."""
+        """bottom_out: [B, D]; pooled: [B, T, D] -> interaction features.
+        On DTensors each rank interacts its own rows (a `shard_map_compat`
+        region over bottom_out's batch shards): the pair gather's backward
+        (an index_put over two index tensors) has no DTensor sharding rule
+        in every torch release."""
+        if pspec.is_dtensor(bottom_out):
+            b_ax = pspec.spec_of(bottom_out)[0]
+
+            @shard_map_compat(mesh=bottom_out.device_mesh,
+                              in_specs=(P(b_ax, None), P(b_ax, None, None)),
+                              out_specs=P(b_ax, None))
+            def local(bottom_l, pooled_l):
+                return self._interact(bottom_l, pooled_l)
+
+            return local(bottom_out, pooled)
         feats = torch.cat([bottom_out[:, None, :], pooled], dim=1)
         if self.cfg.interaction == "dot":
             gram = torch.bmm(feats, feats.transpose(1, 2))   # [B, T+1, T+1]

@@ -15,10 +15,11 @@ from typing import Any, NamedTuple
 import torch
 from torch import nn
 
+from repro_torch.models import pspec
 from repro_torch.models.attention import KVCache, gqa_apply, gqa_init
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, dense_init, ffn_apply,
-                                       ffn_init, layer_norm)
+                                       ffn_init, layer_norm, split_heads)
 from repro_torch.utils import resolve_device
 
 
@@ -118,10 +119,9 @@ class WhisperModel(nn.Module):
     def _cross_kv(self, enc_out):
         """Per-decoder-layer cross K/V from the encoder output."""
         cfg = self.cfg
-        b, s, _ = enc_out.shape
         nkv, hd = cfg.num_kv_heads, cfg.hd
-        return [((enc_out @ lp["xattn"]["wk"]).reshape(b, s, nkv, hd),
-                 (enc_out @ lp["xattn"]["wv"]).reshape(b, s, nkv, hd))
+        return [(split_heads(enc_out @ lp["xattn"]["wk"], nkv, hd),
+                 split_heads(enc_out @ lp["xattn"]["wv"], nkv, hd))
                 for lp in self.dec]
 
     def decode(self, tokens, enc_out, *, cache=None, cache_pos=None):
@@ -163,5 +163,5 @@ class WhisperModel(nn.Module):
         logits, _ = self.decode(tokens, enc)
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        gold = pspec.gather_last(logits, labels)
         return (logz - gold).mean()

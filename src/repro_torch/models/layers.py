@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.models import pspec
+
 
 def dense_init(shape, dtype: torch.dtype, *, generator: torch.Generator,
                device, scale: float | None = None) -> torch.Tensor:
@@ -47,6 +49,11 @@ class Params(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """[..., n*hd] -> [..., n, hd] (`pspec.reshape`: legal on a DTensor)."""
+    return pspec.reshape(t, (*t.shape[:-1], n, hd))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
@@ -139,7 +146,11 @@ class MLPTower(nn.Module):
 
     def forward(self, x: torch.Tensor, *, final_act: bool = False):
         for i in range(self.num_layers):
-            x = x @ getattr(self, f"w{i}") + getattr(self, f"b{i}")
+            # sharded (FSDP) weights are gathered whole at use, as ZeRO-3
+            # does: a product over a sharded contraction dim would sum in
+            # another order than one device's
+            x = (x @ pspec.replicate(getattr(self, f"w{i}"))
+                 + pspec.replicate(getattr(self, f"b{i}")))
             if i < self.num_layers - 1 or final_act:
                 x = torch.relu(x)
         return x

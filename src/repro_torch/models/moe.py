@@ -1,10 +1,13 @@
 """Mixture-of-experts FFN: routing, fixed-capacity dispatch, experts, combine.
 
-The single-shard path of the JAX package's `moe.py`: tokens are scattered
-into an [E, C, d] buffer, no collectives. Over-capacity tokens are dropped
-(`moe_capacity_factor` sets the margin; `moe_aux_stats` reports the
-realized drop rate). Expert parallelism (the all-to-all under shard_map
-when `ctx.ep_size > 1`) comes with the SPMD layer and raises here.
+The JAX package's `moe.py`: tokens are scattered into an [E, C, d]
+buffer. Over-capacity tokens are dropped (`moe_capacity_factor` sets the
+margin; `moe_aux_stats` reports the realized drop rate). With
+`ctx.ep_size > 1` (inside the `shard_map_compat` region that
+`transformer._moe_apply` opens over the `model` axis) the experts are
+sharded and each rank's buffer goes to the experts' owners by an
+all-to-all and back (`_functional_collectives.all_to_all_single`, the
+autograd form, so a train step differentiates through it).
 """
 from __future__ import annotations
 
@@ -104,21 +107,49 @@ def _combine_local(y_buf, info, num_tokens: int):
 
 def moe_ffn_local(params, cfg: ModelConfig, x2d: torch.Tensor,
                   ctx: Optional[MoEContext] = None) -> torch.Tensor:
-    """x2d: [T_local, d] -> [T_local, d], single-shard dispatch."""
-    if ctx is not None and ctx.ep_size > 1:
-        raise NotImplementedError(
-            "expert parallelism (ep_size > 1) comes with the SPMD layer")
+    """Runs on the *local* token shard: x2d [T_local, d] -> [T_local, d].
+    With ctx.ep_size > 1 (plain local tensors inside the region; the
+    expert weights are this rank's [E_loc, ...] shard) it performs the EP
+    all-to-all over `ctx.mesh`'s `ctx.ep_axis` group; otherwise
+    single-shard dense dispatch."""
     e, k = cfg.moe_num_experts, cfg.moe_top_k
     t = x2d.shape[0]
     cap = max(1, int(t * k / e * cfg.moe_capacity_factor))
     top_w, top_e = _route(params["router"], x2d, k)
     buf, info = _dispatch_local(x2d, top_w, top_e, e, cap)   # [E, C, d]
-    y_buf = _expert_ffn(params["wi"], params["wg"], params["wo"], buf)
+    if ctx is not None and ctx.ep_size > 1:
+        y_buf = _expert_parallel(params, buf, ctx, e, cap)
+    else:
+        y_buf = _expert_ffn(params["wi"], params["wg"], params["wo"], buf)
     out = _combine_local(y_buf, info, t)
     if "shared" in params:
         sh = params["shared"]
         out = out + (F.silu(x2d @ sh["wg"]) * (x2d @ sh["wi"])) @ sh["wo"]
     return out.to(x2d.dtype)
+
+
+def _all_to_all(x: torch.Tensor, ctx: MoEContext) -> torch.Tensor:
+    """JAX's `all_to_all(split_axis=0, concat_axis=0, tiled=False)` over
+    the `ctx.ep_axis` group: block r of dim 0 goes to rank r, and block r
+    of the result came from rank r."""
+    from torch.distributed import _functional_collectives as funcol
+    group = ctx.mesh.get_group(ctx.ep_axis)
+    return funcol.all_to_all_single_autograd(x.contiguous(), None, None,
+                                             group)
+
+
+def _expert_parallel(params, buf, ctx: MoEContext, e: int, cap: int):
+    r = ctx.ep_size
+    e_loc = e // r
+    if params["wi"].shape[0] != e_loc:
+        raise ValueError(f"EP expects the local expert shard {e_loc}, "
+                         f"got {params['wi'].shape[0]}")
+    # [E, C, d] -> [R, E_loc, C, d]; exchange: dim 0 becomes source rank
+    recv = _all_to_all(buf.reshape(r, e_loc, cap, -1), ctx)
+    h = recv.movedim(0, 1).reshape(e_loc, r * cap, -1)
+    y = _expert_ffn(params["wi"], params["wg"], params["wo"], h)
+    y = y.reshape(e_loc, r, cap, -1).movedim(1, 0)
+    return _all_to_all(y, ctx).reshape(e, cap, -1)
 
 
 def moe_aux_stats(params, cfg: ModelConfig, x2d: torch.Tensor) -> dict:

@@ -12,8 +12,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import pspec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, split_heads
+from repro_torch.models.pspec import P
+from repro_torch.utils import shard_map_compat
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +69,27 @@ def _assoc_scan(a, b):
     return a, b
 
 
+def _scan_per_rank(scan, args: tuple, like: tuple, roles: tuple):
+    """`scan(*args)`, under a mesh in a `shard_map_compat` region where
+    each rank scans its own sequences and channels (heads): a scan's
+    steps are batch- and channel-parallel, and its many small steps are
+    far cheaper on local tensors than as DTensor ops. `like` = (a tensor,
+    its channel dim) picks the axes (`pspec.region_axes`); `roles` gives
+    each argument's dims as "b" (batch), "c" (channel) or None. The two
+    outputs are laid out as the first and the last argument."""
+    if not pspec.is_dtensor(like[0]):
+        return scan(*args)
+    axes = dict(zip("bc", pspec.region_axes(*like)))
+    specs = tuple(P(*(axes.get(r) for r in role)) for role in roles)
+
+    @shard_map_compat(mesh=like[0].device_mesh, in_specs=specs,
+                      out_specs=(specs[0], specs[-1]))
+    def run(*local):
+        return scan(*local)
+
+    return run(*args)
+
+
 def _mamba_scan_chunked(dA, dBx, h0, chunk: int = 256):
     """h_t = dA_t * h_{t-1} + dBx_t over time, chunked associative scan.
 
@@ -104,19 +128,24 @@ def mamba_apply(params, cfg: ModelConfig, x: torch.Tensor,
     xin = x @ params["in_x"]                               # [B, S, di]
     z = x @ params["in_z"]
 
-    # Causal depthwise conv along seq.
-    if state is None:
-        xpad = F.pad(xin, (0, 0, cd - 1, 0))
+    # Causal depthwise conv along seq (per channel: a rank's own channels
+    # under a mesh, where torch 2.11's DTensor mis-shards the pad)
+    conv = (xin[:, :0] if state is None
+            else state.conv.to(xin.dtype))               # [B, cd-1|0, di]
+    if pspec.is_dtensor(xin):
+        b_ax, c_ax = pspec.region_axes(xin, 2)
+        rows = P(b_ax, None, c_ax)
+        conv_run = shard_map_compat(
+            mesh=xin.device_mesh, in_specs=(rows, rows, P(None, c_ax),
+                                            P(c_ax)),
+            out_specs=(rows, rows))(_causal_conv)
     else:
-        xpad = torch.cat([state.conv.to(xin.dtype), xin], dim=1)
-    idx = (torch.arange(s, device=x.device)[:, None]
-           + torch.arange(cd, device=x.device)[None, :])
-    windows = xpad[:, idx]                                 # [B, S, cd, di]
-    xc = torch.einsum("bscd,cd->bsd", windows, params["conv_w"]) \
-        + params["conv_b"]
-    xc = F.silu(xc)
+        conv_run = _causal_conv
+    xc, xpad = conv_run(xin, conv, params["conv_w"], params["conv_b"])
 
-    proj = xc @ params["x_proj"]
+    # x_proj contracts the (model-sharded) channels: its partial sum is
+    # reduced before the split (torch 2.11's DTensor cannot split it)
+    proj = pspec.reduce_partial(xc @ params["x_proj"])
     dt_in, Bc, Cc = torch.split(proj, [dt_rank, st, st], dim=-1)
     dt = F.softplus(dt_in @ params["dt_proj"]
                     + params["dt_bias"]).float()           # [B,S,di]
@@ -131,7 +160,9 @@ def mamba_apply(params, cfg: ModelConfig, x: torch.Tensor,
         h_last = dA[:, 0] * h0 + dBx[:, 0]
         hs = h_last[:, None]
     else:
-        hs, h_last = _mamba_scan_chunked(dA, dBx, h0)
+        hs, h_last = _scan_per_rank(
+            _mamba_scan_chunked, (dA, dBx, h0), (dA, 2),
+            (("b", None, "c", None),) * 2 + (("b", "c", None),))
 
     y = torch.einsum("bsdn,bsn->bsd", hs, Cc.float())
     y = y + params["D"] * xc.float()
@@ -142,6 +173,20 @@ def mamba_apply(params, cfg: ModelConfig, x: torch.Tensor,
         state.h.copy_(h_last)
         state.conv.copy_(xpad[:, -(cd - 1):])
     return out, state
+
+
+def _causal_conv(xin, conv, conv_w, conv_b):
+    """silu(depthwise causal conv) of xin [B, S, di] after the trailing
+    inputs `conv` [B, cd-1, di] (empty: zero padding); returns (xc, the
+    padded input [B, cd-1+S, di])."""
+    s, cd = xin.shape[1], conv_w.shape[0]
+    xpad = (F.pad(xin, (0, 0, cd - 1, 0)) if conv.shape[1] == 0
+            else torch.cat([conv, xin], dim=1))
+    idx = (torch.arange(s, device=xin.device)[:, None]
+           + torch.arange(cd, device=xin.device)[None, :])
+    windows = xpad[:, idx]                                 # [B, S, cd, di]
+    xc = torch.einsum("bscd,cd->bsd", windows, conv_w) + conv_b
+    return F.silu(xc), xpad
 
 
 def mamba_zero_state(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -190,6 +235,20 @@ def rwkv_init(cfg: ModelConfig, *, generator, device) -> dict:
         "u": init((nh, dh), torch.float32),
         "ln_x": torch.ones((d,), dtype=torch.float32, device=device),
     }
+
+
+def _rwkv_steps(r, k, v, w, u, S0):
+    """The WKV recurrence a token at a time (decode). r/k/v/w: [B, S, H,
+    dh] -> (y [B, S, H, dh], S_last [B, H, dh, dh])."""
+    S_c = S0
+    outs = []
+    for t in range(r.shape[1]):
+        r_t, k_t, v_t, w_t = r[:, t], k[:, t], v[:, t], w[:, t]
+        kv = k_t[..., :, None] * v_t[..., None, :]        # [B,H,dh,dh]
+        outs.append(torch.einsum("bhi,bhij->bhj", r_t,
+                                 S_c + u[..., None] * kv))
+        S_c = w_t[..., :, None] * S_c + kv
+    return torch.stack(outs, dim=1), S_c
 
 
 def _rwkv_chunked_scan(r, k, v, w, u, S0, chunk: int = 64):
@@ -247,40 +306,31 @@ def rwkv_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
 
     def mix(m):
         return x + (xs - x) * mu[m]
-    r = (mix("r") @ params["w_r"]).reshape(b, s, nh, dh)
-    k = (mix("k") @ params["w_k"]).reshape(b, s, nh, dh)
-    v = (mix("v") @ params["w_v"]).reshape(b, s, nh, dh)
+    r = split_heads(mix("r") @ params["w_r"], nh, dh)
+    k = split_heads(mix("k") @ params["w_k"], nh, dh)
+    v = split_heads(mix("v") @ params["w_v"], nh, dh)
     g = F.silu(mix("g") @ params["w_g"])
     wdd = params["w0"] + torch.tanh(mix("w") @ params["w_lora_a"]) \
         @ params["w_lora_b"]
     w = torch.exp(-torch.exp(wdd.float()))                # decay in (0,1)
-    w = w.reshape(b, s, nh, dh)
+    w = split_heads(w, nh, dh)
 
     rf, kf, vf = r.float(), k.float(), v.float()
     u = params["u"]                                       # [H, dh]
 
     S0 = (torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=x.device)
           if state is None else state.wkv.float())
-    if s > 1:
-        # Chunked WKV: O(S/C) sequential chunk steps of matrix products
-        # instead of S outer-product steps (see _rwkv_chunked_scan).
-        y, S_last = _rwkv_chunked_scan(rf, kf, vf, w, u, S0, chunk=64)
-    else:
-        S_c = S0
-        outs = []
-        for t in range(s):
-            r_t, k_t, v_t, w_t = rf[:, t], kf[:, t], vf[:, t], w[:, t]
-            kv = k_t[..., :, None] * v_t[..., None, :]    # [B,H,dh,dh]
-            outs.append(torch.einsum("bhi,bhij->bhj", r_t,
-                                     S_c + u[..., None] * kv))
-            S_c = w_t[..., :, None] * S_c + kv
-        S_last = S_c
-        y = torch.stack(outs, dim=1)
+    # Chunked WKV for a sequence: O(S/C) sequential chunk steps of matrix
+    # products instead of S outer-product steps (see _rwkv_chunked_scan)
+    y, S_last = _scan_per_rank(
+        _rwkv_chunked_scan if s > 1 else _rwkv_steps, (rf, kf, vf, w, u, S0),
+        (rf, 2), (("b", None, "c", None),) * 4 + (("c", None),
+                                                 ("b", "c", None, None)))
     # group-norm per head (ln_x), then gate
-    y = y.reshape(b, s, nh, dh)
+    y = pspec.reshape(y, (b, s, nh, dh))
     y = (y - y.mean(-1, keepdim=True)) * torch.rsqrt(
         y.var(-1, keepdim=True, unbiased=False) + 64e-5)
-    y = (y.reshape(b, s, d) * params["ln_x"]).to(x.dtype) * g
+    y = (pspec.reshape(y, (b, s, d)) * params["ln_x"]).to(x.dtype) * g
     out = y @ params["w_o"]
     return out, (S_last, x[:, -1])
 

@@ -17,16 +17,20 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import pspec
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import (KVCache, MLACache, gqa_apply,
                                           gqa_init, mla_apply, mla_init)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Params, dense_init, ffn_apply,
                                        ffn_init, rms_norm)
-from repro_torch.models.moe import moe_ffn_local, moe_init
-from repro_torch.utils import resolve_device
+from repro_torch.models.moe import MoEContext, moe_ffn_local, moe_init
+from repro_torch.models.pspec import P, mesh_axes
+from repro_torch.utils import resolve_device, shard_map_compat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +144,7 @@ def _layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, s_max: int,
 
 
 def _layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                 *, positions, cache=None, cache_pos=None):
+                 *, positions, cache=None, cache_pos=None, mesh=None):
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
     if spec.mixer in ("attn", "attn_local"):
         window = cfg.sliding_window if spec.mixer == "attn_local" else 0
@@ -159,16 +163,14 @@ def _layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
             cache.shift_t.copy_(shift)
     else:
         raise ValueError(spec.mixer)
-    x = x + out        # (pspec.constrain_activation stood here)
+    x = pspec.constrain_activation(x + out)
 
     h = rms_norm(x, params["norm2"], cfg.norm_eps)
     if spec.ffn == "dense":
         f = ffn_apply(params["ffn"], h, cfg.ffn_act)
     elif spec.ffn == "moe":
         b, s, d = h.shape
-        # single device: the local path (the JAX package's shard_map branch
-        # for a `model` mesh axis comes with the SPMD layer)
-        f = moe_ffn_local(params["ffn"], cfg, h.reshape(b * s, d))
+        f = _moe_apply(params["ffn"], cfg, h.reshape(b * s, d), mesh)
         f = f.reshape(b, s, d)
     elif spec.ffn == "channel_mix":
         shift_c = cache.shift_c if cache is not None else None
@@ -177,7 +179,64 @@ def _layer_apply(params, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
             cache.shift_c.copy_(new_shift)
     else:
         raise ValueError(spec.ffn)
-    return x + f, cache   # (pspec.constrain_activation stood here)
+    return pspec.constrain_activation(x + f), cache
+
+
+def _token_spec(t: int, mesh):
+    """Best divisible token sharding for the MoE local region."""
+    shape = mesh_axes(mesh)
+    chosen: list[str] = []
+    size = 1
+    for a in ("pod", "data", "model"):
+        if a in shape and t % (size * shape[a]) == 0:
+            chosen.append(a)
+            size *= shape[a]
+    return tuple(chosen) if chosen else None
+
+
+def _moe_apply(params, cfg, x2d, mesh):
+    """The MoE FFN: the local dispatch without a mesh; with one, the
+    expert-parallel all-to-all inside a `shard_map_compat` region over
+    the `model` axis, tokens split over every axis that divides them
+    (capacity is then counted per rank, as under JAX's shard_map).
+
+    Unlike JAX, where GSPMD runs the dispatch for a mesh whose `model`
+    axis is 1, the dispatch's sort, cumsum and accumulating scatter have
+    no DTensor sharding rule: on such a mesh the region runs with
+    ep_size 1 on the tokens split over the other axes, which counts
+    capacity per rank too (equal to JAX's on one device)."""
+    tree = {k: params[k] for k in ("router", "wi", "wg", "wo")}
+    if "shared" in params:
+        tree["shared"] = {k: params["shared"][k]
+                          for k in ("wi", "wg", "wo")}
+    if mesh is None:
+        return moe_ffn_local(tree, cfg, x2d, None)
+    shape = mesh_axes(mesh)
+    ep = shape.get("model", 1)
+    tok_axes = _token_spec(x2d.shape[0], mesh)
+    ctx = MoEContext(ep_axis="model", ep_size=ep, mesh=mesh)
+    e_ax = "model" if ep > 1 else None
+
+    @shard_map_compat(mesh=mesh,
+                      in_specs=({"router": P(), "wi": P(e_ax),
+                                 "wg": P(e_ax), "wo": P(e_ax),
+                                 **({"shared": P()} if "shared" in tree
+                                    else {})},
+                                P(tok_axes)),
+                      out_specs=P(tok_axes))
+    def run(p, x):
+        return moe_ffn_local(p, cfg, x, ctx)
+
+    out = run(tree, x2d)
+    if pspec.is_dtensor(x2d):
+        from torch.distributed.tensor import Replicate
+        # back to the tokens' own layout before the caller's [B, S, d]
+        # view: a split over every axis need not fall on whole sequences
+        # (prefill's 32 sequences over 256 ranks), which a DTensor view
+        # cannot express
+        out = out.redistribute(x2d.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x2d.placements])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +284,12 @@ class TransformerLM(nn.Module):
 
     # -- forward -----------------------------------------------------------
     def _embed(self, tokens, vision_embeds=None):
-        x = self.embed[tokens]
+        # F.embedding, not indexing: DTensor shards a gather through its
+        # embedding rule. A vocab-sharded table gives a masked partial
+        # sum, reduced here at the gather's own shape (its mask does not
+        # follow a later slice)
+        x = pspec.reduce_partial(F.embedding(
+            tokens, pspec.gather_table(self.embed)))
         if vision_embeds is not None:
             nv = vision_embeds.shape[1]
             x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
@@ -242,36 +306,85 @@ class TransformerLM(nn.Module):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return x @ self._head()
 
-    def _run_stack(self, x, *, positions, cache=None, cache_pos=None):
-        for i, spec in enumerate(self.specs):
-            x, _ = _layer_apply(self.layers[i], self.cfg, spec, x,
-                                positions=positions,
-                                cache=None if cache is None else cache[i],
-                                cache_pos=cache_pos)
-        return x
+    def _run_stack(self, x, *, positions, cache=None, cache_pos=None,
+                   mesh=None, remat: bool = False):
+        """The layers in plan order. `remat` recomputes each pattern group
+        (the groups' layers, `len(plan.pattern)` at a time; not the prefix
+        or suffix) in the backward pass from its saved input
+        (`torch.utils.checkpoint`, not reentrant), as the JAX package's
+        `jax.checkpoint` of its scan body."""
+        def run(lo: int, hi: int, x):
+            for i in range(lo, hi):
+                x, _ = _layer_apply(
+                    self.layers[i], self.cfg, self.specs[i], x,
+                    positions=positions,
+                    cache=None if cache is None else cache[i],
+                    cache_pos=cache_pos, mesh=mesh)
+            return x
+
+        if not remat or cache is not None:
+            return run(0, len(self.specs), x)
+        lo, period = len(self.plan.prefix), len(self.plan.pattern)
+        hi = lo + self.plan.num_groups * period
+        x = run(0, lo, x)
+        for g in range(lo, hi, period):
+            x = checkpoint(run, g, g + period, x, use_reentrant=False)
+        return run(hi, len(self.specs), x)
 
     def _positions(self, start: int, s: int) -> torch.Tensor:
         return torch.arange(start, start + s, device=self.device)
 
-    def forward(self, tokens, *, vision_embeds=None):
-        """Teacher-forced logits. tokens: [B, S] -> [B, S, V]."""
-        x = self._embed(tokens, vision_embeds)
-        x = self._run_stack(x, positions=self._positions(0, tokens.shape[1]))
-        return self._unembed(x)
+    def forward(self, tokens, *, vision_embeds=None, mesh=None,
+                remat: bool = False):
+        """Teacher-forced logits. tokens: [B, S] -> [B, S, V]. With a
+        mesh, the parameters and inputs are DTensors on it."""
+        with pspec.spmd(mesh):
+            x = self._embed(tokens, vision_embeds)
+            x = self._run_stack(x, positions=self._positions(
+                0, tokens.shape[1]), mesh=mesh, remat=remat)
+            return self._unembed(x)
 
-    def loss(self, tokens, labels, *, vision_embeds=None,
-             vocab_chunk: int = 0):
+    def loss(self, tokens, labels, *, vision_embeds=None, mesh=None,
+             remat: bool = False, vocab_chunk: int = 0):
         """Mean next-token cross-entropy; optional seq-chunked unembed."""
+        with pspec.spmd(mesh):
+            return self._loss(tokens, labels, vision_embeds, mesh, remat,
+                              vocab_chunk)
+
+    def _loss(self, tokens, labels, vision_embeds, mesh, remat, vocab_chunk):
         s = tokens.shape[1]
         x = self._embed(tokens, vision_embeds)
-        x = self._run_stack(x, positions=self._positions(0, s))
+        x = self._run_stack(x, positions=self._positions(0, s), mesh=mesh,
+                            remat=remat)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         w = self._head()
 
+        # Vocab-parallel loss: activations replicated over `model`, the
+        # unembed weight vocab-sharded over `model`; each shard computes
+        # the logits of its vocab slice, and only [tokens] statistics
+        # cross shards (the hints act under an active mesh, as in JAX).
+        vp = None
+        axes = mesh_axes(mesh) if mesh is not None else {}
+        if "model" in axes and self.cfg.vocab_size % axes["model"] == 0:
+            vp = axes["model"]
+            w = pspec.constrain(w, P(None, "model"))
+
         def xent(h, y):
+            if vp is not None:
+                dp = (pspec.batch_axes(mesh, h.shape[0])
+                      if pspec.parallel_mode() != "fsdp_only" else
+                      tuple(a for a in ("pod", "data") if a in axes) or None)
+                h = pspec.constrain(h, P(dp, None, None))
             logits = (h @ w).float()
             logz = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, y[..., None])[..., 0]
+            # the gold logit as h · w[:, y] in h's dtype (the logit's own
+            # rounding), not a gather from the logits: a gather's backward
+            # makes a zero tensor of the logits' GLOBAL shape on every rank
+            # under DTensor. The columns come through the embedding rule
+            # (masked partial sum over vocab shards, reduced here).
+            w_y = pspec.reduce_partial(F.embedding(
+                y, pspec.gather_table(w.T)))
+            gold = torch.einsum("bsd,bsd->bs", h, w_y.to(h.dtype)).float()
             return logz - gold
 
         if vocab_chunk and s % vocab_chunk == 0 and s > vocab_chunk:
@@ -282,19 +395,20 @@ class TransformerLM(nn.Module):
         return xent(x, labels).mean()
 
     @torch.no_grad()
-    def prefill(self, tokens, cache, *, vision_embeds=None):
+    def prefill(self, tokens, cache, *, vision_embeds=None, mesh=None):
         """Fill the cache with a prompt (in place); returns (last-token
         logits [B, 1, V], cache)."""
-        x = self._embed(tokens, vision_embeds)
-        x = self._run_stack(x, positions=self._positions(0, tokens.shape[1]),
-                            cache=cache, cache_pos=0)
-        return self._unembed(x[:, -1:]), cache
+        with pspec.spmd(mesh):
+            x = self._embed(tokens, vision_embeds)
+            x = self._run_stack(x, positions=self._positions(
+                0, tokens.shape[1]), cache=cache, cache_pos=0, mesh=mesh)
+            return self._unembed(x[:, -1:]), cache
 
     @torch.no_grad()
-    def decode_step(self, token, cache, cache_pos: int):
+    def decode_step(self, token, cache, cache_pos: int, *, mesh=None):
         """One decode step. token: [B, 1]; cache_pos: the write index."""
-        x = self._embed(token)
-        x = self._run_stack(x, positions=self._positions(cache_pos, 1),
-                            cache=cache, cache_pos=cache_pos)
-        return self._unembed(x), cache
-
+        with pspec.spmd(mesh):
+            x = self._embed(token)
+            x = self._run_stack(x, positions=self._positions(cache_pos, 1),
+                                cache=cache, cache_pos=cache_pos, mesh=mesh)
+            return self._unembed(x), cache

@@ -44,8 +44,9 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _zeros(dtype: torch.dtype | None = None) -> Callable:
-    return lambda p: torch.zeros(p.shape, dtype=dtype or p.dtype,
-                                 device=p.device)
+    # zeros_like: a DTensor parameter gets state with its placements
+    return lambda p: torch.zeros_like(p, dtype=dtype or p.dtype,
+                                      memory_format=torch.contiguous_format)
 
 
 def _bias_correction(beta: float, count: torch.Tensor) -> torch.Tensor:

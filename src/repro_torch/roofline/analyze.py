@@ -20,7 +20,17 @@ composite decompositions (`einsum` arrives as `bmm`, `x @ w` as `mm`).
                      dynamic-update-slice rule.
   collective_bytes — operand bytes of the `_c10d_functional` collectives
                      (all_reduce, all_gather_into_tensor, reduce_scatter_
-                     tensor, all_to_all_single, broadcast).
+                     tensor, all_to_all_single, broadcast; their autograd
+                     forms too).
+
+Per device under DTensor. The mode sees a DTensor op once, at its global
+shapes, and the collectives DTensor inserts as plain ops at local shapes
+(already one device's). So a DTensor op's flops are its global flops
+divided by the product of the sizes of the mesh dims on which its output
+is `Shard` or `Partial` (each rank computes its block, or its partial
+sum; a replicated output means every rank did the whole product), and
+its bytes count each DTensor's local shard. One program over a
+(2, 4) mesh thus counts one device's eighth of a product that divides.
 
 Eager PyTorch does not fuse, so `bytes` is what the eager program moves,
 not the least a fused program could move; state that least apart (a floor:
@@ -32,6 +42,7 @@ each weight read once, plus the cache, plus the output).
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -60,8 +71,27 @@ _COLLECTIVES = {"all_reduce", "all_reduce_coalesced",
                 "all_to_all_single", "broadcast"}
 
 
+def _numel(t: torch.Tensor) -> int:
+    """Elements on this device: a DTensor's local shard."""
+    return t._local_tensor.numel() if isinstance(t, DTensor) else t.numel()
+
+
 def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
+    return _numel(t) * t.element_size()
+
+
+def _flop_share(out) -> float:
+    """1 / the product of the mesh-dim sizes on which a DTensor output is
+    sharded or partial (1 for plain tensors): see the module docstring."""
+    for t in tree_flatten(out)[0]:
+        if isinstance(t, DTensor):
+            mesh = t.device_mesh
+            n = 1
+            for m, p in enumerate(t.placements):
+                if p.is_shard() or p.is_partial():
+                    n *= mesh.size(m)
+            return 1.0 / n
+    return 1.0
 
 
 def _mm_flops(func, args) -> float:
@@ -111,7 +141,8 @@ class OpCost(TorchDispatchMode):
                                   + self.bytes - before)
 
     def _charge(self, func, name, args, kwargs, out) -> None:
-        if func.namespace == "_c10d_functional":
+        if func.namespace in ("_c10d_functional",
+                              "_c10d_functional_autograd"):
             if name in _COLLECTIVES:
                 moved = sum(_nbytes(t) for t in tree_flatten(args)[0]
                             if isinstance(t, torch.Tensor))
@@ -120,7 +151,7 @@ class OpCost(TorchDispatchMode):
             return
         if func.is_view or func in _FREE:
             return
-        self.flops += _mm_flops(func, args)
+        self.flops += _mm_flops(func, args) * _flop_share(out)
         schema = func._schema
         mutated = []
         reads = 0
@@ -141,7 +172,7 @@ class OpCost(TorchDispatchMode):
             self.bytes += reads + written
             return
         if func in _INDEXED_WRITES:
-            region = (_indexed_values(func, args, kwargs).numel()
+            region = (_numel(_indexed_values(func, args, kwargs))
                       * mutated[0].element_size())
             self.bytes += reads + region * (
                 2 if _accumulates(func, args, kwargs) else 1)

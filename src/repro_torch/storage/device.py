@@ -13,8 +13,14 @@ differentiates the plain gather itself.
 No staging, no refresh: with everything resident there is nothing to
 overlap or re-pin at the storage level (the paper's in-kernel prefetch and
 hot-row operand live inside the kernel itself, selected by
-`EmbeddingStageConfig.prefetch_distance`/`pinned_rows`). The TPU path's
-`pspec.constrain_tablewise` sharding hints have no counterpart on one card.
+`EmbeddingStageConfig.prefetch_distance`/`pinned_rows`).
+
+Under a mesh (the step functions of `repro_torch.launch.steps` make the
+tables a DTensor, table-wise sharded) the lookup pins the table-parallel
+layout end to end, as the TPU path does: the indices (padded with
+`shard_pad_tables` empty tables) reshard to the tables' owners, each rank
+runs the same lookup (the kernel on the card) on its local tables inside
+a `shard_map_compat` region, and only pooled outputs travel back.
 """
 from __future__ import annotations
 
@@ -22,9 +28,16 @@ import torch
 
 from repro_torch.core.update import UpdateTxn, require_open
 from repro_torch.kernels.embedding_bag import EmbeddingBagFunction
+from repro_torch.models import pspec
+from repro_torch.models.pspec import P
 from repro_torch.storage.base import EmbeddingStorage, StorageCapabilities
 from repro_torch.storage.registry import register
-from repro_torch.utils import to_tensor
+from repro_torch.utils import shard_map_compat, to_tensor
+
+
+def _pad_tables(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """[T, ...] -> [T + pad, ...], zeros after (empty tables)."""
+    return torch.cat([x, x.new_zeros((pad, *x.shape[1:]))], dim=0)
 
 
 @register("device")
@@ -97,17 +110,54 @@ class DeviceStorage(EmbeddingStorage):
     def lookup(self, indices: torch.Tensor, weights=None, *,
                pre_remapped: bool = False) -> torch.Tensor:
         """indices: [B, T, L] int32 -> pooled [B, T, D]."""
-        from repro_torch.core.embedding import _pool_rows_core, gather_rows
-        cfg = self.cfg
         if not pre_remapped:
             indices = self.ebc.remap_indices(indices)
         tables = self.ebc.tables                       # [T(+pad), R, D]
+        if pspec.is_dtensor(tables):
+            return self._lookup_tablewise(tables, indices, weights)
+        return self._lookup_local(tables, indices, weights)
+
+    def _lookup_local(self, tables, indices, weights):
+        """Plain tensors: the kernel on the card, the plain gather and
+        pooling on the CPU or meta. indices' T may be below the tables'
+        (pad tables are never looked up: the grid covers indices' T)."""
+        from repro_torch.core.embedding import _pool_rows_core, gather_rows
         if not tables.is_cuda:
             return _pool_rows_core(gather_rows(tables, indices), weights,
-                                   cfg.combine)
-        # pad tables are never looked up: the grid covers indices' T only
+                                   self.cfg.combine)
         return EmbeddingBagFunction.apply(
             tables, indices.to(torch.int32).contiguous(),
             None if weights is None
             else weights.to(torch.float32).contiguous(),
-            cfg.kernel_opts())
+            self.cfg.kernel_opts())
+
+    def _lookup_tablewise(self, tables, indices, weights):
+        """The lookup on a table-wise sharded DTensor: `_lookup_local` on
+        each rank's tables [T_loc, R, D] and indices [B, T_loc, L]."""
+        cfg = self.cfg
+        t_entry = pspec.spec_of(tables)[0]
+        if any(p.is_shard() and p.dim != 0 for p in tables.placements):
+            raise ValueError(
+                f"tables placed {tables.placements}: the lookup runs on "
+                f"whole local tables (shard dim 0 only)")
+        mesh = tables.device_mesh
+        idx_t = indices.transpose(0, 1)                # [T, B, L]
+        w_t = None if weights is None else weights.transpose(0, 1)
+        if cfg.shard_pad_tables:
+            idx_t = _pad_tables(idx_t, cfg.shard_pad_tables)
+            if w_t is not None:
+                w_t = _pad_tables(w_t, cfg.shard_pad_tables)
+        tw = P(t_entry, None, None)
+        idx_t = pspec.constrain(idx_t, tw)
+        specs = (tw, tw) + (() if w_t is None else (tw,))
+
+        @shard_map_compat(mesh=mesh, in_specs=specs, out_specs=tw)
+        def local(tab, idx, w=None):                   # [T_loc, ...]
+            pooled = self._lookup_local(
+                tab, idx.transpose(0, 1),
+                None if w is None else w.transpose(0, 1))
+            return pooled.transpose(0, 1).contiguous()  # [T_loc, B, D]
+
+        pooled = local(tables, idx_t, *(() if w_t is None else (w_t,)))
+        pooled = pspec.constrain_tablewise(pooled).transpose(0, 1)
+        return pooled[:, :cfg.num_tables]

@@ -1,5 +1,6 @@
 """Small helpers shared by the port: devices and dtypes, logging, timing,
-JSON files."""
+JSON files, `shard_map_compat` (the SPMD layer's local region) and tree
+arithmetic over nested dicts and lists of tensors."""
 from __future__ import annotations
 
 import contextlib
@@ -92,6 +93,165 @@ def to_tensor(arr: np.ndarray, dtype) -> torch.Tensor:
     if dtype_name(dtype) == BF16:
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def asdict_shallow(cfg: Any) -> dict:
+    """dataclasses.asdict without deep-copying tensor fields."""
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+
+# -- the SPMD layer's local region ---------------------------------------
+def shard_map_compat(*, mesh, in_specs, out_specs):
+    """Decorator: run a function written for plain tensors on each rank's
+    local shards, the counterpart of `jax.shard_map` over
+    `torch.distributed.tensor.experimental.local_map`.
+
+    `in_specs` has one entry an argument and `out_specs` one an output
+    (a tuple for several), each a `models.pspec.P` or a tree of them
+    whose leaf `P` covers every tensor under it (JAX's prefix rule).
+    Inputs are redistributed to their spec when theirs differs (local_map's
+    `redistribute_inputs=True`, as shard_map under jit reshards its
+    operands); a plain tensor is a global value, replicated on every rank,
+    and is split to its spec too; non-tensors pass through. Outputs become
+    DTensors with their spec's placements.
+
+    Gradients: an input's gradient is sharded where its spec shards it,
+    and a partial sum (`Partial`) on every other mesh dim that an output
+    spec shards, since the ranks along such a dim worked on different
+    data; elsewhere it is replicated. JAX's `check_vma` has no
+    counterpart: local_map does not check that an output declared
+    replicated is equal on every rank, so nothing here checks it.
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.models.pspec import P, to_placements
+
+    is_spec = lambda s: isinstance(s, P)                    # noqa: E731
+    out_tuple = isinstance(out_specs, tuple) and not is_spec(out_specs)
+    out_list = list(out_specs) if out_tuple else [out_specs]
+    out_pl = [to_placements(s, mesh) for s in out_list]
+    split = {m for pl in out_pl for m, p in enumerate(pl)
+             if isinstance(p, Shard)}
+
+    def _as_dtensor(t):
+        from torch.distributed.tensor import DTensor
+        if not torch.is_tensor(t) or isinstance(t, DTensor):
+            return t
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+
+    def leaf_placements(spec, leaf):
+        if not torch.is_tensor(leaf):
+            return None, None
+        pl = to_placements(spec, mesh, leaf.ndim)
+        grad = tuple(p if isinstance(p, Shard) else
+                     (Partial() if m in split else Replicate())
+                     for m, p in enumerate(pl))
+        return pl, grad
+
+    def deco(fn):
+        def run(*args):
+            args = pytree.tree_map(_as_dtensor, args)
+            if len(args) != len(in_specs):
+                raise TypeError(f"{fn.__name__}: {len(args)} arguments, "
+                                f"{len(in_specs)} in_specs")
+            flat_pl, flat_grad = [], []
+            for arg, spec in zip(args, in_specs):
+                leaves = pytree.tree_leaves(arg)
+                specs = _broadcast_specs(spec, arg, is_spec)
+                for leaf, s in zip(leaves, specs):
+                    pl, grad = leaf_placements(s, leaf)
+                    flat_pl.append(pl)
+                    flat_grad.append(grad)
+            # local_map gets the leaves flat: its own pytree (optree where
+            # installed) may order a dict's leaves otherwise
+            leaves, treedef = pytree.tree_flatten(args)
+
+            def local(*local_leaves):
+                return _contiguous_local(
+                    fn, *pytree.tree_unflatten(list(local_leaves), treedef))
+            return local_map(
+                # one output's placements go as a list: local_map reads
+                # a tuple as one placements entry per output
+                local, out_placements=(tuple(out_pl) if out_tuple
+                                       else list(out_pl[0])),
+                in_placements=tuple(flat_pl),
+                in_grad_placements=tuple(flat_grad),
+                device_mesh=mesh, redistribute_inputs=True)(*leaves)
+        run.__name__ = fn.__name__
+        return run
+    return deco
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _contiguous_local(fn, *args):
+    """`fn` on local shards, with contiguous outputs and input gradients:
+    a DTensor takes its local tensor's layout for its global one, so a
+    transposed local result (an einsum's gradient) would break a later
+    view."""
+    from torch.utils import _pytree as pytree
+    args = pytree.tree_map(
+        lambda t: (_ContiguousGrad.apply(t)
+                   if torch.is_tensor(t) and t.requires_grad else t), args)
+    return pytree.tree_map(
+        lambda t: t.contiguous() if torch.is_tensor(t) else t, fn(*args))
+
+
+def _broadcast_specs(spec, tree, is_spec) -> list:
+    """One spec a leaf of `tree`, in pytree leaf order: a spec leaf covers
+    the whole subtree under it (JAX's prefix rule)."""
+    from torch.utils import _pytree as pytree
+    if is_spec(spec):
+        return [spec] * len(pytree.tree_leaves(tree))
+    if isinstance(spec, dict):
+        return [s for k in tree for s in
+                _broadcast_specs(spec[k], tree[k], is_spec)]
+    if isinstance(spec, (list, tuple)):
+        return [s for sp, sub in zip(spec, tree) for s in
+                _broadcast_specs(sp, sub, is_spec)]
+    raise TypeError(f"spec {spec!r} for {type(tree).__name__}")
+
+
+# -- tree arithmetic ------------------------------------------------------
+def _tensor_leaves(tree: Any) -> list:
+    from torch.utils import _pytree as pytree
+    return [x for x in pytree.tree_leaves(tree) if torch.is_tensor(x)]
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def tree_bytes(tree: Any) -> int:
+    """Bytes of the tensors in `tree`; a DTensor counts its local shard
+    (one device's bytes, as the dry-run's per-device figures are)."""
+    return sum(_local(x).numel() * x.element_size()
+               for x in _tensor_leaves(tree))
+
+
+def tree_param_count(tree: Any) -> int:
+    """Elements of the tensors in `tree`, at their global shapes."""
+    return sum(x.numel() for x in _tensor_leaves(tree))
+
+
+def tree_finite(tree: Any) -> bool:
+    """Every floating tensor in `tree` finite (True for a tree without one)."""
+    return all(bool(torch.isfinite(_local(x)).all())
+               for x in _tensor_leaves(tree) if x.is_floating_point())
 
 
 # -- timing ----------------------------------------------------------------------

@@ -49,7 +49,9 @@ def test_walk_sees_the_package():
             "configs/phi4_mini_3_8b.py", "configs/deepseek_v2_lite_16b.py",
             "configs/jamba_1_5_large_398b.py", "configs/whisper_medium.py",
             "examples/lm_inference.py", "roofline/hw.py",
-            "roofline/analyze.py", "roofline/report.py"} <= ported
+            "roofline/analyze.py", "roofline/report.py",
+            "launch/__init__.py", "launch/mesh.py", "launch/sharding.py",
+            "launch/steps.py", "launch/dryrun.py", "models/pspec.py"} <= ported
     configs = {f.name for f in (REPO / "src" / "repro" / "configs").glob(
         "*.py")}
     assert configs <= {f.name for f in FILES}
