@@ -128,11 +128,20 @@ and the script exits non-zero:
                   to the same step without a mesh bit for bit (loss and
                   every parameter, deterministic algorithms), as many bag
                   launches as the plain step
-  8g. spmd_dryrun `python -m repro_torch.launch.dryrun` for three cells
-                  (phi4-mini and deepseek-v2-lite train_4k, dlrm-production
-                  serve) in parallel processes on a fake group of 256
-                  ranks, no card: each `ok`, per-device bytes, dominant
-                  term, deepseek's expert all-to-all counted
+  8g. spmd_dryrun `python -m repro_torch.launch.dryrun` for seven cells
+                  in parallel processes, no card (started before
+                  spmd_lm_train, beside which they run; collected
+                  here): on a fake group of 256
+                  ranks phi4-mini and deepseek-v2-lite train_4k,
+                  dlrm-production serve, phi4-mini prefill_32k and
+                  whisper-medium train_4k; on 512 ranks (2x16x16)
+                  phi4-mini and rwkv6-7b train_4k. Each `ok` within its
+                  300 s, per-device bytes, dominant term, deepseek's
+                  expert all-to-all counted, whisper within 80 GB a
+                  device, phi4-mini train_4k's flops a device x 512
+                  within 10 % of the one-pod cell's x 256, and
+                  prefill_32k's x 256 within 10 % of the same prefill
+                  counted without a mesh on meta
   8d. serve_sharded  full width, 64 tables: the `device` reference, then
                   the `sharded` backend on 4 shards (serve_tiered's tiers,
                   contiguous placement): 2 batches of 2048, logits ==
@@ -368,15 +377,24 @@ LM_ROOFLINE_DIR = os.path.join(ROOT, "build", "lm_roofline")
 # the first step's loss against the plain step's within the JAX test's
 # 1e-3 relative. spmd_dlrm: the serve step over the device serve phase's
 # tables (logits bit for bit), one SGD step at the train phase's wide
-# widths (bit for bit under deterministic algorithms). spmd_dryrun: three
-# production-mesh cells in subprocesses, in parallel
+# widths (bit for bit under deterministic algorithms). spmd_dryrun: seven
+# production-mesh cells (arch, shape, mesh) in subprocesses, in parallel
+# beside spmd_lm_train (CPU only; the tiered phases' host memory leaves
+# no room for them later); the same global work on both meshes and
+# without one within SPMD_FLOPS_RTOL
 SPMD_STORE = os.path.join(ROOT, "build", "chip_smoke_spmd_store")
 SPMD_LM_ARCH, SPMD_LM_SEQ, SPMD_LM_STEPS = "phi4-mini-3.8b", 4096, 5
 SPMD_LOSS_RTOL = 1e-3
 SPMD_DLRM_LR = 0.01
-SPMD_DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k"),
-                     ("deepseek-v2-lite-16b", "train_4k"),
-                     ("dlrm-production", "serve"))
+SPMD_DRYRUN_CELLS = (("phi4-mini-3.8b", "train_4k", "single"),
+                     ("deepseek-v2-lite-16b", "train_4k", "single"),
+                     ("dlrm-production", "serve", "single"),
+                     ("phi4-mini-3.8b", "prefill_32k", "single"),
+                     ("whisper-medium", "train_4k", "single"),
+                     ("phi4-mini-3.8b", "train_4k", "multi"),
+                     ("rwkv6-7b", "train_4k", "multi"))
+SPMD_DRYRUN_TIMEOUT_S = 300
+SPMD_FLOPS_RTOL = 0.10
 SPMD_DRYRUN_DIR = os.path.join(ROOT, "build", "chip_smoke_dryrun")
 
 
@@ -3660,26 +3678,78 @@ def phase_spmd_dlrm_train(mesh, cfg, pattern, *, tables: int =
     return out
 
 
-def phase_spmd_dryrun() -> dict:
-    """The production-mesh dry-run of three cells, each in its own process
-    (a fake group of 256 ranks, meta tensors, no card), all at once."""
-    failed: list = []
+# the no-mesh count of `spmd_dryrun`'s prefill cell, a process of its own
+_PREFILL_NO_MESH = """
+import sys
+from repro_torch.configs import get_config
+from repro_torch.launch.steps import lm_inputs
+from repro_torch.models import build_model
+from repro_torch.models.config import SHAPES
+from repro_torch.roofline.analyze import OpCost
+cfg = get_config(sys.argv[1])
+model = build_model(cfg, device="meta")
+x = lm_inputs(cfg, SHAPES[sys.argv[2]], model)
+with OpCost() as cost:
+    model.prefill(x["tokens"], x["cache"])
+print("FLOPS", cost.total()["flops"])
+"""
+_DRYRUN_PROCS: list = []
+
+
+def start_spmd_dryrun() -> None:
+    """Start the production-mesh dry-run of seven cells, each in its own
+    process (a fake group of 256 or 512 ranks, meta tensors, no card),
+    and the count of the prefill cell without a mesh: CPU work that runs
+    beside the card's phases until `phase_spmd_dryrun` collects it."""
     shutil.rmtree(SPMD_DRYRUN_DIR, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                CUDA_VISIBLE_DEVICES="")
-    procs = [(arch, shape, subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--out", SPMD_DRYRUN_DIR], env=env, cwd=ROOT,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for arch, shape in SPMD_DRYRUN_CELLS]
-    cells = {}
-    for arch, shape, proc in procs:
-        try:
-            log, _ = proc.communicate(timeout=300)
-        except subprocess.TimeoutExpired:
+
+    def start(argv):
+        return subprocess.Popen([sys.executable, *argv], env=env, cwd=ROOT,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    _DRYRUN_PROCS[:] = [(time.perf_counter(), "prefill_no_mesh", start(
+        ["-c", _PREFILL_NO_MESH, "phi4-mini-3.8b", "prefill_32k"]))] + [
+        (time.perf_counter(), (arch, shape, mesh), start(
+            ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--mesh", mesh, "--out", SPMD_DRYRUN_DIR]))
+        for arch, shape, mesh in SPMD_DRYRUN_CELLS]
+
+
+def stop_spmd_dryrun() -> None:
+    """Kill what `start_spmd_dryrun` started and is still running."""
+    for _, _, proc in _DRYRUN_PROCS:
+        if proc.poll() is None:
             proc.kill()
-            log, _ = proc.communicate()
-        tag = f"{arch}__{shape}__single"
+            proc.communicate()
+    _DRYRUN_PROCS.clear()
+
+
+def _collect(started: float, proc) -> str:
+    try:
+        log, _ = proc.communicate(timeout=max(
+            1.0, SPMD_DRYRUN_TIMEOUT_S - (time.perf_counter() - started)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        log, _ = proc.communicate()
+    return log
+
+
+def phase_spmd_dryrun() -> dict:
+    """Collect `start_spmd_dryrun`'s processes (each within 300 s of its
+    start) and hold their records to the checks."""
+    failed: list = []
+    (t_pre, _, pre), *procs = _DRYRUN_PROCS
+    log = _collect(t_pre, pre)
+    plain_prefill = (float(log.split("FLOPS")[1].split()[0])
+                     if pre.returncode == 0 else float("nan"))
+    expect(failed, pre.returncode == 0,
+           f"prefill without a mesh: rc {pre.returncode}: {log[-500:]}")
+    cells = {}
+    for started, (arch, shape, mesh), proc in procs:
+        log = _collect(started, proc)
+        tag = f"{arch}__{shape}__{mesh}"
         path = os.path.join(SPMD_DRYRUN_DIR, tag + ".json")
         rec = read_json(path) if os.path.exists(path) else {}
         status = rec.get("status", "missing")
@@ -3690,16 +3760,37 @@ def phase_spmd_dryrun() -> dict:
                         fits_80GB_HBM=m["fits_80GB_HBM"],
                         dominant=r["dominant"],
                         per_device_flops=r["per_device_flops"],
+                        compute_s=r["compute_s"], memory_s=r["memory_s"],
+                        collective_s=r["collective_s"],
                         collective_breakdown=r["collective_breakdown"],
-                        torch=rec["torch"], seconds=rec["compile_s"])
+                        num_chips=rec["num_chips"], torch=rec["torch"],
+                        seconds=rec["lower_s"] + rec["compile_s"])
         else:
             cell["log_tail"] = log[-1500:]
         cells[tag] = cell
         expect(failed, status == "ok", f"dryrun {tag}: {status}")
+    _DRYRUN_PROCS.clear()
     ds = cells.get("deepseek-v2-lite-16b__train_4k__single", {})
     expect(failed, "all_to_all_single" in ds.get("collective_breakdown", {}),
            "deepseek's expert all-to-all is not counted")
-    return {"cells": cells, "failed": failed}
+    wh = cells.get("whisper-medium__train_4k__single", {})
+    expect(failed, wh.get("fits_80GB_HBM") is True,
+           f"whisper train_4k: {wh.get('per_device_bytes')} B a device")
+
+    def global_flops(tag):
+        c = cells.get(tag, {})
+        return c.get("per_device_flops", float("nan")) * c.get("num_chips", 0)
+    train = {m: global_flops(f"phi4-mini-3.8b__train_4k__{m}")
+             for m in ("single", "multi")}
+    prefill = global_flops("phi4-mini-3.8b__prefill_32k__single")
+    ratios = {"train_multi_over_single": train["multi"] / train["single"]
+              if train["single"] else float("nan"),
+              "prefill_over_no_mesh": prefill / plain_prefill}
+    for name, ratio in ratios.items():
+        expect(failed, abs(ratio - 1.0) <= SPMD_FLOPS_RTOL,
+               f"phi4-mini {name} {ratio}")
+    return {"cells": cells, "global_flops_ratios": ratios,
+            "prefill_flops_no_mesh": plain_prefill, "failed": failed}
 
 
 def main() -> int:
@@ -3735,6 +3826,7 @@ def main() -> int:
     def stop(phase: str) -> bool:
         if args.stop_after == phase:
             end_spmd_group()
+            stop_spmd_dryrun()
             emit("stopped", after=phase,
                  seconds=time.perf_counter() - t_all)
         return args.stop_after == phase
@@ -3772,7 +3864,9 @@ def main() -> int:
     if stop("lm_serve"):
         return 0
 
-    # 2d. spmd_lm_train: the LM train step on the one-card mesh
+    # 2d. spmd_lm_train: the LM train step on the one-card mesh; the
+    # dry-run's processes (8g, CPU only) start here and run beside it
+    start_spmd_dryrun()
     t0 = time.perf_counter()
     mesh = spmd_group()
     spmd_lm = phase_spmd_lm_train(mesh, smi)
@@ -4006,7 +4100,7 @@ def main() -> int:
     if stop("spmd_dlrm"):
         return 0
 
-    # 8g. spmd_dryrun: three production-mesh cells, no card
+    # 8g. spmd_dryrun: seven production-mesh cells, no card
     t0 = time.perf_counter()
     dry = phase_spmd_dryrun()
     end_spmd_group()
@@ -4106,4 +4200,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_spmd_dryrun()          # a failed phase leaves none running

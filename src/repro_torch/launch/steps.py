@@ -183,7 +183,7 @@ def make_lm_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                 params = _params(model_)
                 loss = loss_fn(batch)
                 grads = grads_of(loss, params)
-                adamw_lowmem_update(params, grads, opt_state, lr=lr)
+                _local_update(params, grads, opt_state, lr)
             return loss.detach(), model_, opt_state
 
         fn_inputs = (model, opt, inputs)
@@ -206,6 +206,21 @@ def make_lm_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                       inputs=fn_inputs, in_shardings=in_sh,
                       out_shardings=out_sh, donate_argnums=donate,
                       meta={"kind": "train", "parallel_mode": mode})
+
+
+def _local_update(params: dict, grads: dict, opt_state: dict, lr: float):
+    """AdamW on each rank's own shards. The update is elementwise, and
+    every gradient and moment has its parameter's placements, so it is
+    the same update on the local tensors (written in place into the
+    DTensors' storage), without DTensor's dispatch of each of its ops."""
+    def local(tree):
+        return {n: t.to_local() if pspec.is_dtensor(t) else t
+                for n, t in tree.items()}
+    with torch.no_grad():
+        adamw_lowmem_update(local(params), local(grads),
+                            {"m": local(opt_state["m"]),
+                             "v": local(opt_state["v"]),
+                             "count": opt_state["count"]}, lr=lr)
 
 
 def make_lm_serve_step(cfg: ModelConfig, shape: ShapeConfig, mesh, *,

@@ -159,10 +159,17 @@ def _attention_per_rank(q, k, v, **kw):
     einsum's views). Prefill and train take k and v whole along the
     sequence (a sequence-sharded cache is gathered for them); a decode
     step keeps the cache's sequence shards and combines the softmax
-    across them (`chunked_attention`'s `seq_groups`)."""
+    across them (`chunked_attention`'s `seq_groups`).
+
+    Where `model` takes neither the batch nor the KV heads (they do not
+    divide it), a prefill or train step splits the queries along the
+    sequence over `model` instead, so its ranks do not all repeat the
+    whole attention (GSPMD's split of the same einsums): each rank
+    attends its block of queries, offset by the block's start, against
+    the whole keys, whose gradient is then a partial sum over `model`."""
     b_ax, kv_ax = pspec.region_axes(q, 2)
     mesh = q.device_mesh
-    s_ax = None
+    s_ax = q_ax = None
     if q.shape[1] == 1:
         used = {a for e in (b_ax, kv_ax) if e
                 for a in (e if isinstance(e, tuple) else (e,))}
@@ -170,22 +177,37 @@ def _attention_per_rank(q, k, v, **kw):
         axes = s_ax if isinstance(s_ax, tuple) else (s_ax,)
         if s_ax is None or used & set(axes):
             s_ax = None
-    qs = P(b_ax, None, kv_ax, None, None)
+    elif kv_ax is None and "model" not in (
+            b_ax if isinstance(b_ax, tuple) else (b_ax,)):
+        q_ax = pspec.axis_if(mesh, q.shape[1], ("model",))
+    qs = P(b_ax, q_ax, kv_ax, None, None)
     ks = P(b_ax, s_ax, kv_ax, None)
     names = list(mesh.mesh_dim_names)
     s_dims = sorted(names.index(a) for a in (
         () if s_ax is None else s_ax if isinstance(s_ax, tuple) else (s_ax,)))
+    q_dim = None if q_ax is None else names.index(q_ax)
+    q_offset = kw.pop("q_offset")
 
     @shard_map_compat(mesh=mesh, in_specs=(qs, ks, ks), out_specs=qs)
     def run(q_l, k_l, v_l):
+        coord = mesh.get_coordinate()
         block = 0
         for m in s_dims:
-            block = block * mesh.size(m) + mesh.get_coordinate()[m]
+            block = block * mesh.size(m) + coord[m]
+        q_block = 0 if q_dim is None else coord[q_dim]
         return chunked_attention(
             q_l, k_l, v_l, seq_groups=[mesh.get_group(m) for m in s_dims],
-            kv_offset=block * k_l.shape[1], kv_total=k.shape[1], **kw)
+            kv_offset=block * k_l.shape[1], kv_total=k.shape[1],
+            q_offset=q_offset + q_block * q_l.shape[1], **kw)
 
-    return run(q, k, v)
+    out = run(q, k, v)
+    if q_ax is None:
+        return out
+    # the query blocks gathered again, into the layout the heads' path
+    # gives (a product over batch and sequence both sharded would hand
+    # DTensor strided shards, whose redistributions it plans by search)
+    return out.redistribute(mesh, pspec.to_placements(
+        P(b_ax, None, kv_ax, None, None), mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +268,7 @@ def gqa_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
     qg = pspec.reshape(q, (b, s, nkv, g, hd))
     out = chunked_attention(qg, k, v, causal=causal and cross_kv is None,
                             window=window, q_offset=q_offset, kv_len=kv_len)
-    out = pspec.reshape(out, (b, s, nh * hd))
+    out = pspec.constrain_channels(pspec.reshape(out, (b, s, nh * hd)))
     return out @ params["wo"], new_cache
 
 
@@ -314,5 +336,5 @@ def mla_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
 
     out = chunked_attention(qh[:, :, :, None, :], k, v, causal=True,
                             q_offset=q_offset, kv_len=kv_len)
-    out = pspec.reshape(out, (b, s, nh * vh))
+    out = pspec.constrain_channels(pspec.reshape(out, (b, s, nh * vh)))
     return out @ params["wo"], new_cache

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import pspec
@@ -90,7 +91,11 @@ class WhisperModel(nn.Module):
         """frames: [B, S_audio, d_model] stub embeddings -> encoder states."""
         cfg = self.cfg
         s = frames.shape[1]
-        x = frames.to(cfg.torch_dtype) + self.enc_pos[:s]
+        # the positions whole (a table sharded on d would take the frames'
+        # batch shard with it: torch 2.11 shards their sum on d over every
+        # mesh dim), then the batch over the policy's axes
+        x = pspec.constrain_activation(
+            frames.to(cfg.torch_dtype) + pspec.replicate(self.enc_pos[:s]))
         positions = torch.arange(s, device=x.device)
         for lp in self.enc:
             h = layer_norm(x, lp["norm1_w"], lp["norm1_b"])
@@ -131,10 +136,15 @@ class WhisperModel(nn.Module):
         """
         cfg = self.cfg
         s = tokens.shape[1]
-        x = self.dec_embed[tokens]
+        # F.embedding, not indexing: DTensor shards a gather through its
+        # embedding rule (torch 2.11 has no rule for indexing a table
+        # sharded on d by ids sharded on the same mesh dims)
+        x = pspec.reduce_partial(F.embedding(
+            tokens, pspec.gather_table(self.dec_embed)))
         start = 0 if cache_pos is None else cache_pos
         positions = torch.arange(start, start + s, device=x.device)
-        x = x + self.dec_pos[start:start + s]
+        x = pspec.constrain_activation(
+            x + pspec.replicate(self.dec_pos[start:start + s]))
 
         cross = self._cross_kv(enc_out)
         for i, lp in enumerate(self.dec):

@@ -253,6 +253,23 @@ def constrain_activation(x):
     return constrain(x, P(batch_axes(mesh, x.shape[0]), None, None))
 
 
+def constrain_channels(x, channel_dim: int = -1):
+    """[B, ..., C]: batch over the policy's axes, the channels over
+    `model` where they divide (`region_axes`), the rest whole: the
+    layout a row-parallel product reads and a column-parallel one
+    writes. Pins a row-parallel product's partial sum to a
+    reduce-scatter over its channels before an elementwise op, where
+    DTensor would otherwise scatter it over the sequence; and a whole
+    input of a row-parallel product to its channel shards, whose weight
+    gradient torch 2.11 would otherwise compute whole on every rank."""
+    if current_mesh() is None or not is_dtensor(x):
+        return x
+    b_ax, c_ax = region_axes(x, channel_dim)
+    spec = [None] * x.ndim
+    spec[0], spec[channel_dim] = b_ax, c_ax
+    return constrain(x, P(*spec))
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
@@ -353,6 +370,12 @@ def gather_table(table):
     from torch.distributed.tensor import Replicate
     placements = [Replicate() if p.is_shard() and p.dim != 0 else p
                   for p in table.placements]
+    # the vocab kept sharded over one mesh dim only (the last): over
+    # several, DTensor's masked lookup reuses one mask buffer per mesh
+    # dim, and comparing masks has no meta kernel (the dry-run's)
+    vocab = [m for m, p in enumerate(placements) if p.is_shard(0)]
+    for m in vocab[:-1]:
+        placements[m] = Replicate()
     if placements == list(table.placements):
         return table
     return table.redistribute(table.device_mesh, placements)
@@ -371,11 +394,12 @@ def reshape(x, shape):
 
 
 def _view(x, shape):
+    """(the view, whether `x` had to be gathered for it)."""
     # contiguous first: a local shard may not be, though the DTensor's
     # global strides say so, and DTensor reshapes by a local view
     x = x.contiguous()
     try:
-        return x.reshape(shape)
+        return x.reshape(shape), False
     except RuntimeError:
         pass
     from torch.distributed.tensor import Replicate
@@ -384,18 +408,29 @@ def _view(x, shape):
     x = x.redistribute(x.device_mesh, [
         Replicate() if p.is_shard() and p.dim >= first else p
         for p in x.placements])
-    return x.reshape(shape)
+    return x.reshape(shape), True
 
 
 class _Reshape(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, shape):
         ctx.in_shape = tuple(x.shape)
-        return _view(x, shape)
+        out, gathered = _view(x, shape)
+        # a gathered forward takes its gradient back to the input's
+        # shards (the gather's adjoint): left whole, the producer's
+        # weight gradient would be computed whole on every rank
+        ctx.in_placements = tuple(x.placements) if gathered else None
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        return _view(grad, ctx.in_shape), None
+        grad, _ = _view(grad, ctx.in_shape)
+        if ctx.in_placements is not None:
+            target = [p if p.is_shard() else g for p, g in
+                      zip(ctx.in_placements, grad.placements)]
+            if target != list(grad.placements):
+                grad = grad.redistribute(grad.device_mesh, target)
+        return grad, None
 
 
 def write_at(buf, new, pos: int, dim: int = 1):

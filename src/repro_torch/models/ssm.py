@@ -7,6 +7,8 @@ them.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -76,18 +78,112 @@ def _scan_per_rank(scan, args: tuple, like: tuple, roles: tuple):
     far cheaper on local tensors than as DTensor ops. `like` = (a tensor,
     its channel dim) picks the axes (`pspec.region_axes`); `roles` gives
     each argument's dims as "b" (batch), "c" (channel) or None. The two
-    outputs are laid out as the first and the last argument."""
+    outputs are laid out as the first and the last argument.
+
+    Where the channels do not divide `model` and the batch leaves it
+    free, the ranks along `model` would each scan the whole batch shard.
+    They split its (sequence, channel) pairs instead, which are
+    independent scans, and gather the results back over `model`."""
     if not pspec.is_dtensor(like[0]):
         return scan(*args)
-    axes = dict(zip("bc", pspec.region_axes(*like)))
+    mesh = like[0].device_mesh
+    b_ax, c_ax = pspec.region_axes(*like)
+    axes = {"b": b_ax, "c": c_ax}
     specs = tuple(P(*(axes.get(r) for r in role)) for role in roles)
+    body = scan
+    sizes = pspec.mesh_axes(mesh)
+    b_axes = b_ax if isinstance(b_ax, tuple) else (b_ax,) if b_ax else ()
+    n = sizes.get("model", 1)
+    pairs = (like[0].shape[0] // math.prod(sizes[a] for a in b_axes)
+             * like[0].shape[like[1]])
+    if c_ax is None and n > 1 and "model" not in b_axes and pairs % n == 0:
+        m = list(mesh.mesh_dim_names).index("model")
+        body = functools.partial(_scan_pairs, scan, roles, mesh.get_group(m),
+                                 n, m, mesh)
 
-    @shard_map_compat(mesh=like[0].device_mesh, in_specs=specs,
+    @shard_map_compat(mesh=mesh, in_specs=specs,
                       out_specs=(specs[0], specs[-1]))
     def run(*local):
-        return scan(*local)
+        return body(*local)
 
     return run(*args)
+
+
+def _to_pairs(t, role, bsz: int):
+    """[.., B, .., C, ..] laid out as `role` -> [B*C, the other dims]; an
+    argument without a batch dim is broadcast over `bsz` first."""
+    if "b" not in role:
+        t = t.unsqueeze(0).expand(bsz, *t.shape)
+        role = ("b",) + tuple(role)
+    return t.movedim((role.index("b"), role.index("c")), (0, 1)).flatten(0, 1)
+
+
+def _from_pairs(t, role, bsz: int):
+    """The inverse of `_to_pairs`; an argument without a batch dim takes
+    its pairs as its channels."""
+    if "b" not in role:
+        return t.movedim(0, role.index("c"))
+    return t.unflatten(0, (bsz, -1)).movedim(
+        (0, 1), (role.index("b"), role.index("c")))
+
+
+def _scan_pairs(scan, roles, group, n: int, m: int, mesh, *local):
+    """`scan` on this rank's 1/n of the (batch, channel) pairs of whole
+    local tensors (batch 1, the pairs as channels), the outputs gathered
+    over `group` (the `model` ranks, n of them; this one is coordinate m
+    of `mesh`)."""
+    bsz = next(t.shape[r.index("b")] for t, r in zip(local, roles)
+               if "b" in r)
+    idx = mesh.get_coordinate()[m]
+    part = []
+    for t, role in zip(local, roles):
+        rows = _to_pairs(t, role, bsz)
+        per = rows.shape[0] // n
+        part.append(_from_pairs(
+            _TakeRows.apply(rows, idx * per, per, group), role, 1))
+    outs = scan(*part)
+    return tuple(_from_pairs(_GatherRows.apply(_to_pairs(o, r, 1), idx, group),
+                             r, bsz)
+                 for o, r in zip(outs, (roles[0], roles[-1])))
+
+
+class _TakeRows(torch.autograd.Function):
+    """Rows [lo, lo + n) of a tensor whole on every rank of `group`; the
+    gradient, this rank's rows only, is gathered from the group's ranks
+    (whole again, the same on each)."""
+
+    @staticmethod
+    def forward(ctx, x, lo: int, n: int, group):
+        ctx.group = group
+        return x.narrow(0, lo, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather_rows(grad, ctx.group), None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Each rank's rows gathered over `group` in rank order, whole on
+    every rank; the gradient (the same on each rank) is this rank's
+    rows of it."""
+
+    @staticmethod
+    def forward(ctx, x, idx: int, group):
+        ctx.idx, ctx.n = idx, x.shape[0]
+        return _all_gather_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(0, ctx.idx * ctx.n, ctx.n).contiguous(), None, None
+
+
+def _all_gather_rows(x, group):
+    from torch.distributed import _functional_collectives as funcol
+    gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor       # the name before torch 2.13
+    out = gather(x.contiguous(), 0, group)
+    return (out.wait() if isinstance(out, funcol.AsyncCollectiveTensor)
+            else out)
 
 
 def _mamba_scan_chunked(dA, dBx, h0, chunk: int = 256):
@@ -256,7 +352,10 @@ def _rwkv_chunked_scan(r, k, v, w, u, S0, chunk: int = 64):
 
     Returns (y [B, S, H, dh], S_last [B, H, dh, dh]). The reference's
     arithmetic as it stands: within-chunk cumulative decays W, k divided by
-    max(W, 1e-20), padding with identity decays.
+    max(W, 1e-20), padding with identity decays. Everything but the state
+    recurrence is batched over the chunks; the loop over chunks carries the
+    state alone, and each chunk's read of its incoming state is one batched
+    product after it (the reference's scan body, scheduled so).
     """
     b, s, nh, dh = r.shape
     c = min(chunk, s)
@@ -266,29 +365,28 @@ def _rwkv_chunked_scan(r, k, v, w, u, S0, chunk: int = 64):
         zp = (0, 0, 0, 0, 0, pad)
         r, k, v = F.pad(r, zp), F.pad(k, zp), F.pad(v, zp)
         w = F.pad(w, zp, value=1.0)
+    r, k, v, w = (t.reshape(b, n, c, nh, dh) for t in (r, k, v, w))
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
                      diagonal=-1)
+    W = torch.cumprod(w, dim=2)                           # [B,n,C,H,dh] W_t
+    W_prev = W / w                                        # W_{t-1} (W_0 = 1)
+    rW = r * W_prev
+    kW = k / torch.clamp_min(W, 1e-20)                    # k_s / W_s
+    # intra-chunk attention-like matrix [B,n,H,C,C]
+    A = torch.einsum("bnthi,bnshi->bnhts", rW, kW)
+    A = torch.where(tri, A, 0.0)
+    diag = torch.einsum("bnthi,bnthi->bnth", r * u, k)
+    intra = torch.einsum("bnhts,bnshj->bnthj", A, v) + diag[..., None] * v
+    W_C = W[:, :, -1]                                     # [B,n,H,dh]
+    kv = torch.einsum("bnshi,bnshj->bnhij", kW * W_C[:, :, None], v)
     S_c = S0
-    outs = []
+    states = []                                           # S entering chunk i
     for i in range(n):
-        sl = slice(i * c, (i + 1) * c)
-        r_i, k_i, v_i, w_i = r[:, sl], k[:, sl], v[:, sl], w[:, sl]
-        W = torch.cumprod(w_i, dim=1)                     # [B,C,H,dh] W_t
-        W_prev = W / w_i                                  # W_{t-1} (W_0 = 1)
-        rW = r_i * W_prev                                 # [B,C,H,dh]
-        kW = k_i / torch.clamp_min(W, 1e-20)              # k_s / W_s
-        # intra-chunk attention-like matrix [B,H,C,C]
-        A = torch.einsum("bthi,bshi->bhts", rW, kW)
-        A = torch.where(tri[None, None], A, 0.0)
-        diag = torch.einsum("bthi,bthi->bth", r_i * u[None, None], k_i)
-        out = torch.einsum("bhts,bshj->bthj", A, v_i) \
-            + diag[..., None] * v_i \
-            + torch.einsum("bthi,bhij->bthj", rW, S_c)    # h0 contribution
-        W_C = W[:, -1]                                    # [B,H,dh]
-        S_c = W_C[..., :, None] * S_c + torch.einsum(
-            "bshi,bshj->bhij", kW * W_C[:, None], v_i)
-        outs.append(out)
-    y = torch.cat(outs, dim=1)[:, :s]
+        states.append(S_c)
+        S_c = W_C[:, i, :, :, None] * S_c + kv[:, i]
+    out = intra + torch.einsum("bnthi,bnhij->bnthj", rW,
+                               torch.stack(states, dim=1))  # h0 contribution
+    y = out.reshape(b, n * c, nh, dh)[:, :s]
     return y, S_c
 
 
@@ -299,23 +397,24 @@ def rwkv_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
     dh = cfg.rwkv_head_dim
     nh = d // dh
 
+    # the carried shift in the activations' layout (the state keeps its
+    # channels over `model`; left so, the shift would take x with it)
     prev = (torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
-            if state is None else state.shift_t[:, None].to(x.dtype))
+            if state is None else
+            pspec.constrain_activation(state.shift_t[:, None].to(x.dtype)))
     xs = torch.cat([prev, x[:, :-1]], dim=1)              # token shift
     mu = params["mu"]
+    dx = xs - x
 
     def mix(m):
-        return x + (xs - x) * mu[m]
+        return x + dx * mu[m]
     r = split_heads(mix("r") @ params["w_r"], nh, dh)
     k = split_heads(mix("k") @ params["w_k"], nh, dh)
     v = split_heads(mix("v") @ params["w_v"], nh, dh)
     g = F.silu(mix("g") @ params["w_g"])
-    wdd = params["w0"] + torch.tanh(mix("w") @ params["w_lora_a"]) \
-        @ params["w_lora_b"]
-    w = torch.exp(-torch.exp(wdd.float()))                # decay in (0,1)
-    w = split_heads(w, nh, dh)
-
-    rf, kf, vf = r.float(), k.float(), v.float()
+    wdd = pspec.constrain_channels(
+        params["w0"] + torch.tanh(mix("w") @ params["w_lora_a"])
+        @ params["w_lora_b"])
     u = params["u"]                                       # [H, dh]
 
     S0 = (torch.zeros((b, nh, dh, dh), dtype=torch.float32, device=x.device)
@@ -323,16 +422,26 @@ def rwkv_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
     # Chunked WKV for a sequence: O(S/C) sequential chunk steps of matrix
     # products instead of S outer-product steps (see _rwkv_chunked_scan)
     y, S_last = _scan_per_rank(
-        _rwkv_chunked_scan if s > 1 else _rwkv_steps, (rf, kf, vf, w, u, S0),
-        (rf, 2), (("b", None, "c", None),) * 4 + (("c", None),
-                                                 ("b", "c", None, None)))
-    # group-norm per head (ln_x), then gate
-    y = pspec.reshape(y, (b, s, nh, dh))
-    y = (y - y.mean(-1, keepdim=True)) * torch.rsqrt(
-        y.var(-1, keepdim=True, unbiased=False) + 64e-5)
+        functools.partial(_wkv_heads,
+                          _rwkv_chunked_scan if s > 1 else _rwkv_steps),
+        (r, k, v, split_heads(wdd, nh, dh), u, S0),
+        (r, 2), (("b", None, "c", None),) * 4 + (("c", None),
+                                                ("b", "c", None, None)))
+    # then the gate
     y = (pspec.reshape(y, (b, s, d)) * params["ln_x"]).to(x.dtype) * g
     out = y @ params["w_o"]
     return out, (S_last, x[:, -1])
+
+
+def _wkv_heads(scan, r, k, v, wdd, u, S0):
+    """The WKV of the heads given, in f32, from the decay's logits `wdd`,
+    then each head's group norm (ln_x's, before its weight): all per
+    head, so under a mesh each rank computes them on its own heads."""
+    w = torch.exp(-torch.exp(wdd.float()))                # decay in (0,1)
+    y, S_last = scan(r.float(), k.float(), v.float(), w, u, S0)
+    y = (y - y.mean(-1, keepdim=True)) * torch.rsqrt(
+        y.var(-1, keepdim=True, unbiased=False) + 64e-5)
+    return y, S_last
 
 
 def rwkv_channel_mix_init(cfg: ModelConfig, *, generator, device) -> dict:
@@ -353,10 +462,12 @@ def rwkv_channel_mix(params, x: torch.Tensor,
                      shift: torch.Tensor | None = None):
     b, s, d = x.shape
     prev = (torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
-            if shift is None else shift[:, None].to(x.dtype))
+            if shift is None else
+            pspec.constrain_activation(shift[:, None].to(x.dtype)))
     xs = torch.cat([prev, x[:, :-1]], dim=1)
-    xk = x + (xs - x) * params["mu_k"]
-    xr = x + (xs - x) * params["mu_r"]
+    dx = xs - x
+    xk = x + dx * params["mu_k"]
+    xr = x + dx * params["mu_r"]
     v = torch.square(torch.relu(xk @ params["cm_k"])) @ params["cm_v"]
     return torch.sigmoid(xr @ params["cm_r"]) * v, x[:, -1]
 

@@ -297,7 +297,10 @@ class TransformerLM(nn.Module):
         # number: no copy to the card)
         scale = torch.tensor(float(np.sqrt(np.float32(self.cfg.d_model))),
                              dtype=torch.float32).to(x.dtype)
-        return x * float(scale)
+        # the block boundary's layout from the first block on: a table
+        # sharded on d would hand the first norm a d-sharded input, whose
+        # partial statistics DTensor reduce-scatters over the sequence
+        return pspec.constrain_activation(x * float(scale))
 
     def _head(self):
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head

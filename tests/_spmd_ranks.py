@@ -79,26 +79,30 @@ def vocab_loss_rank(rank: int, store: str, data: str, out: str):
 
 
 def lm_step_rank(rank: int, world: int, shape: tuple, arch: str,
-                 store: str, data: str, out: str):
-    """`make_lm_train_step` on a gloo mesh of `shape`: its gradient step
-    (`with_optimizer=False`), then one AdamW step from the same
-    parameters; rank 0 writes the loss, the gradients (`grad.<name>`),
-    Adam's new first moment (`m.<name>`, in f32) and the updated
-    parameters, all whole."""
+                 store: str, data: str, out: str, mode=None,
+                 overrides=None):
+    """`make_lm_train_step` on a gloo mesh of `shape` (the parallel
+    `mode` the step picks unless given; `overrides` replace fields of the
+    reduced config): its gradient step (`with_optimizer=False`), then one
+    AdamW step from the same parameters; rank 0 writes the loss, the
+    gradients (`grad.<name>`), Adam's new first moment (`m.<name>`, in
+    f32) and the updated parameters, all whole."""
+    import dataclasses
     gloo(rank, world, store)
     arrs = dict(np.load(data))
-    cfg = reduced(get_config(arch))
+    cfg = dataclasses.replace(reduced(get_config(arch)), **(overrides or {}))
     model = build_model(cfg, device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in arrs.items()
                            if k not in ("tokens", "labels")})
     mesh = make_debug_mesh(shape, device_type="cpu")
     g = make_lm_train_step(cfg, SHAPE, mesh, model=model,
-                           with_optimizer=False)
+                           with_optimizer=False, parallel_mode=mode)
     batch = distribute_inputs(
         {k: torch.from_numpy(arrs[k]) for k in ("tokens", "labels")},
         g.in_shardings[1], mesh)
     _, grads = g.fn(model, batch)
-    b = make_lm_train_step(cfg, SHAPE, mesh, model=model)
+    b = make_lm_train_step(cfg, SHAPE, mesh, model=model,
+                           parallel_mode=mode)
     loss, model, opt = b.fn(model, b.inputs[1], batch)
     full = {n: p.full_tensor().detach().numpy()
             for n, p in model.named_parameters()}

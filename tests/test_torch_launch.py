@@ -65,13 +65,17 @@ LOGITS_TOL = {"rtol": 1e-4, "atol": 1e-5}   # tests/test_torch_dlrm.py's
 SHAPE = _spmd_ranks.SHAPE
 
 
-def _lm_cfgs(arch: str):
-    return jax_reduced(jax_get_config(arch)), reduced(get_config(arch))
+def _lm_cfgs(arch: str, overrides=None):
+    import dataclasses
+    return (dataclasses.replace(jax_reduced(jax_get_config(arch)),
+                                **(overrides or {})),
+            dataclasses.replace(reduced(get_config(arch)),
+                                **(overrides or {})))
 
 
-def _lm_case(arch: str, tmp_path):
+def _lm_case(arch: str, tmp_path, overrides=None):
     """(port config, JAX params as numpy, tokens, labels, .npz path)."""
-    jcfg, cfg = _lm_cfgs(arch)
+    jcfg, cfg = _lm_cfgs(arch, overrides)
     params = jax.tree.map(np.asarray, jax_build_model(jcfg).init(
         jax.random.PRNGKey(0)))
     toks, labels = np.random.default_rng(1).integers(
@@ -104,11 +108,13 @@ def _plain_step(cfg, sd: dict, toks, labels) -> dict:
     return out
 
 
-def _mesh_step(arch, shape, data, tmp_path) -> dict:
+def _mesh_step(arch, shape, data, tmp_path, mode=None,
+               overrides=None) -> dict:
     world = int(np.prod(shape))
     out = str(tmp_path / "step.npz")
     mp.spawn(_spmd_ranks.lm_step_rank, args=(world, shape, arch,
-                                    str(tmp_path / "store"), data, out),
+                                    str(tmp_path / "store"), data, out,
+                                    mode, overrides),
              nprocs=world)
     return dict(np.load(out))
 
@@ -159,6 +165,27 @@ def test_lm_train_step_on_mesh_matches_unsharded(arch, mode, tmp_path):
     got = _mesh_step(arch, (2, 2), data, tmp_path)
     assert str(got["mode"]) == mode
     print("LOSS", float(got["loss"]), want["loss"])
+    _report(got, want)
+    _assert_step_close(got, want, MESH_GRAD_RTOL)
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("phi4-mini-3.8b", {"num_kv_heads": 1}),
+    ("rwkv6-7b", {"rwkv_head_dim": 128}),
+])
+def test_lm_train_step_split_regions_match_unsharded(arch, overrides,
+                                                     tmp_path):
+    """`tp_fsdp` on the (2, 2) mesh with channels that do not divide
+    `model` (one KV head; one RWKV head): the attention splits its
+    queries along the sequence over `model`, the WKV scan splits its
+    (sequence, head) pairs over it, and the step equals the one without
+    a mesh to the tolerances above."""
+    cfg, _, toks, labels, data = _lm_case(arch, tmp_path, overrides)
+    sd = {k: torch.from_numpy(v) for k, v in np.load(data).items()
+          if k not in ("tokens", "labels")}
+    want = _plain_step(cfg, sd, toks, labels)
+    got = _mesh_step(arch, (2, 2), data, tmp_path, "tp_fsdp", overrides)
+    assert str(got["mode"]) == "tp_fsdp"
     _report(got, want)
     _assert_step_close(got, want, MESH_GRAD_RTOL)
 
