@@ -32,6 +32,7 @@ from torch import nn
 
 from repro_torch.core import hot_cache
 from repro_torch.kernels.embedding_bag import EmbeddingBagOpts
+from repro_torch.tracing import span
 from repro_torch.utils import resolve_device, torch_dtype
 
 
@@ -187,5 +188,6 @@ class EmbeddingBagCollection(nn.Module):
                 f"storage {self.cfg.storage!r} cannot differentiate its "
                 f"host lookup, and the tables require a gradient: train on "
                 f"storage='device', or look up under torch.no_grad()")
-        return self.storage.lookup(indices, weights,
-                                   pre_remapped=pre_remapped)
+        with span("ebc.lookup"):
+            return self.storage.lookup(indices, weights,
+                                       pre_remapped=pre_remapped)

@@ -39,6 +39,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.tracing import span
+
 #: Launches of the CUDA kernel since the count was last set to 0. Only
 #: `embedding_bag_cuda` adds to it, once per launch, through
 #: `_count_launch`: the sharded backend's shard threads launch at once, and
@@ -221,52 +223,57 @@ def embedding_bag_cuda(tables: torch.Tensor, indices: torch.Tensor,
     weights: [B, T, L] float32, contiguous, or None
     returns: [B, T, D] in the tables' dtype
     """
-    opts.validate()
-    if opts.mode not in ("sum", "mean"):
-        raise ValueError(f"unknown mode {opts.mode!r}")
-    if not tables.is_cuda:
-        raise ValueError("embedding_bag_cuda needs tables on a CUDA device; "
-                         "CPU tensors go to ref.embedding_bag_ref")
-    if tables.dim() != 3 or tables.dtype not in _DTYPE_CODES \
-            or tables.stride(2) != 1:
-        raise ValueError(f"tables must be [T, R, D] float32/bfloat16 with "
-                         f"contiguous rows, got {tuple(tables.shape)} "
-                         f"{tables.dtype} strides {tables.stride()}")
-    if (indices.dim() != 3 or indices.dtype != torch.int32
-            or not indices.is_contiguous()
-            or indices.device != tables.device
-            or indices.shape[1] > tables.shape[0]):
-        raise ValueError(f"indices must be contiguous int32 [B, T<={tables.shape[0]}, L] "
-                         f"on {tables.device}, got {tuple(indices.shape)} "
-                         f"{indices.dtype} on {indices.device}")
-    if weights is not None and (
-            weights.shape != indices.shape or weights.dtype != torch.float32
-            or not weights.is_contiguous() or weights.device != tables.device):
-        raise ValueError(f"weights must be contiguous float32 "
-                         f"{tuple(indices.shape)} on {tables.device}")
-    batch, num_tables, pooling = indices.shape
-    rows, dim = tables.shape[1], tables.shape[2]
-    num_hot = max(0, min(opts.num_hot, rows))
-    # the hot operand is a view of each table's hot-first prefix, never a
-    # copy, so an in-place online update can never leave it stale
-    hot = tables[:, :num_hot]
-    out = torch.empty((batch, num_tables, dim), dtype=tables.dtype,
-                      device=tables.device)
-    if out.numel() == 0:
+    with span("embedding_bag.launch"):
+        opts.validate()
+        if opts.mode not in ("sum", "mean"):
+            raise ValueError(f"unknown mode {opts.mode!r}")
+        if not tables.is_cuda:
+            raise ValueError("embedding_bag_cuda needs tables on a CUDA "
+                             "device; CPU tensors go to "
+                             "ref.embedding_bag_ref")
+        if tables.dim() != 3 or tables.dtype not in _DTYPE_CODES \
+                or tables.stride(2) != 1:
+            raise ValueError(f"tables must be [T, R, D] float32/bfloat16 with "
+                             f"contiguous rows, got {tuple(tables.shape)} "
+                             f"{tables.dtype} strides {tables.stride()}")
+        if (indices.dim() != 3 or indices.dtype != torch.int32
+                or not indices.is_contiguous()
+                or indices.device != tables.device
+                or indices.shape[1] > tables.shape[0]):
+            raise ValueError(f"indices must be contiguous int32 "
+                             f"[B, T<={tables.shape[0]}, L] "
+                             f"on {tables.device}, got {tuple(indices.shape)} "
+                             f"{indices.dtype} on {indices.device}")
+        if weights is not None and (
+                weights.shape != indices.shape
+                or weights.dtype != torch.float32
+                or not weights.is_contiguous()
+                or weights.device != tables.device):
+            raise ValueError(f"weights must be contiguous float32 "
+                             f"{tuple(indices.shape)} on {tables.device}")
+        batch, num_tables, pooling = indices.shape
+        rows, dim = tables.shape[1], tables.shape[2]
+        num_hot = max(0, min(opts.num_hot, rows))
+        # the hot operand is a view of each table's hot-first prefix, never
+        # a copy, so an in-place online update can never leave it stale
+        hot = tables[:, :num_hot]
+        out = torch.empty((batch, num_tables, dim), dtype=tables.dtype,
+                          device=tables.device)
+        if out.numel() == 0:
+            return out
+        lib = _library()
+        with torch.cuda.device(tables.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.embedding_bag_launch(
+                tables.data_ptr(), tables.stride(0), tables.stride(1),
+                hot.data_ptr(), hot.stride(0), hot.stride(1), num_hot, rows,
+                indices.data_ptr(),
+                None if weights is None else weights.data_ptr(),
+                out.data_ptr(), batch, num_tables, pooling, dim,
+                _DTYPE_CODES[tables.dtype], int(opts.mode == "mean"),
+                opts.batch_block, opts.prefetch_distance, stream)
+        if err:
+            raise RuntimeError("embedding_bag kernel launch failed: "
+                               + lib.embedding_bag_error_string(err).decode())
+        _count_launch()
         return out
-    lib = _library()
-    with torch.cuda.device(tables.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.embedding_bag_launch(
-            tables.data_ptr(), tables.stride(0), tables.stride(1),
-            hot.data_ptr(), hot.stride(0), hot.stride(1), num_hot, rows,
-            indices.data_ptr(),
-            None if weights is None else weights.data_ptr(),
-            out.data_ptr(), batch, num_tables, pooling, dim,
-            _DTYPE_CODES[tables.dtype], int(opts.mode == "mean"),
-            opts.batch_block, opts.prefetch_distance, stream)
-    if err:
-        raise RuntimeError("embedding_bag kernel launch failed: "
-                           + lib.embedding_bag_error_string(err).decode())
-    _count_launch()
-    return out

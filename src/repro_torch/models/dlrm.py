@@ -19,6 +19,7 @@ from repro_torch.core.embedding import EmbeddingBagCollection, EmbeddingStageCon
 from repro_torch.models import pspec
 from repro_torch.models.layers import MLPTower
 from repro_torch.models.pspec import P
+from repro_torch.tracing import span
 from repro_torch.utils import resolve_device, shard_map_compat, torch_dtype
 
 
@@ -94,19 +95,21 @@ class DLRM(nn.Module):
                 return self._interact(bottom_l, pooled_l)
 
             return local(bottom_out, pooled)
-        feats = torch.cat([bottom_out[:, None, :], pooled], dim=1)
-        if self.cfg.interaction == "dot":
-            gram = torch.bmm(feats, feats.transpose(1, 2))   # [B, T+1, T+1]
-            iu, ju = self._pairs          # row-major, as jnp.triu_indices
-            pairs = gram[:, iu, ju]                          # [B, C(T+1,2)]
-            return torch.cat([bottom_out, pairs], dim=1)
-        return feats.reshape(feats.shape[0], -1)
+        with span("dlrm.interact"):
+            feats = torch.cat([bottom_out[:, None, :], pooled], dim=1)
+            if self.cfg.interaction == "dot":
+                gram = torch.bmm(feats, feats.transpose(1, 2))  # [B, T+1, T+1]
+                iu, ju = self._pairs      # row-major, as jnp.triu_indices
+                pairs = gram[:, iu, ju]                      # [B, C(T+1,2)]
+                return torch.cat([bottom_out, pairs], dim=1)
+            return feats.reshape(feats.shape[0], -1)
 
     def forward(self, dense: torch.Tensor, sparse_indices: torch.Tensor,
                 sparse_weights: torch.Tensor | None = None) -> torch.Tensor:
         """dense: [B, F]; sparse_indices: [B, T, L] -> CTR logits [B]."""
-        pooled = self.ebc(sparse_indices, sparse_weights)
-        return self.forward_from_pooled(dense, pooled)
+        with span("dlrm.forward"):
+            pooled = self.ebc(sparse_indices, sparse_weights)
+            return self.forward_from_pooled(dense, pooled)
 
     def forward_from_pooled(self, dense: torch.Tensor,
                             pooled: torch.Tensor) -> torch.Tensor:
@@ -115,9 +118,11 @@ class DLRM(nn.Module):
         Split out so a host-backed storage can run its lookup on the host
         and feed the pooled rows into this remainder.
         """
-        bottom = self.bottom(dense, final_act=True)
+        with span("dlrm.bottom"):
+            bottom = self.bottom(dense, final_act=True)
         z = self._interact(bottom, pooled.to(bottom.dtype))
-        return self.top(z)[:, 0]
+        with span("dlrm.top"):
+            return self.top(z)[:, 0]
 
     def embedding_only(self, sparse_indices: torch.Tensor) -> torch.Tensor:
         """Embedding stage in isolation (paper's embedding-only latency)."""

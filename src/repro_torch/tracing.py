@@ -1,0 +1,42 @@
+"""Named ranges at each layer of the port, for `torch.profiler`.
+
+`span(name)` is the one way the port marks a layer. Inside a running
+profiler it is `torch.profiler.record_function("repro_torch." + name)`, so
+the range lands in the profiler's Chrome trace on the clock of the device
+records, and each kernel falls under the spans open on the thread that
+launched it (by the launch's correlation id). Outside a profiler it is a
+shared no-op, after one check, so a span costs the serving path next to
+nothing. A span never synchronises, reads no tensor and changes no result.
+
+Spans, and what each is for:
+
+    repro_torch.dlrm.forward             DLRM.forward: the whole step
+                                         (dense_ms is the forward less
+                                         ebc.lookup)
+    repro_torch.ebc.lookup               EmbeddingBagCollection.forward:
+                                         embedding_ms
+    repro_torch.embedding_bag.launch     kernel.embedding_bag_cuda, its checks
+                                         to the launch: the bag kernel's time
+                                         (bag_roofline), and the host work
+                                         before each bag kernel
+    repro_torch.dlrm.bottom              the bottom MLP tower: mlp_ms
+    repro_torch.dlrm.interact            DLRM._interact, the dot interaction:
+                                         interact_ms
+    repro_torch.dlrm.top                 the top MLP tower: mlp_ms
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+PREFIX = "repro_torch."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks `PREFIX + name` while a profiler runs,
+    and does nothing otherwise."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(PREFIX + name)
+    return _OFF

@@ -1,15 +1,13 @@
-"""Small helpers shared by the port: devices and dtypes, logging, timing,
-JSON files, `shard_map_compat` (the SPMD layer's local region) and tree
+"""Small helpers shared by the port: devices and dtypes, logging, JSON
+files, `shard_map_compat` (the SPMD layer's local region) and tree
 arithmetic over nested dicts and lists of tensors."""
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import logging
 import os
-import time
-from typing import Any, Callable, Iterator
+from typing import Any
 
 import numpy as np
 import torch
@@ -252,42 +250,6 @@ def tree_finite(tree: Any) -> bool:
     """Every floating tensor in `tree` finite (True for a tree without one)."""
     return all(bool(torch.isfinite(_local(x)).all())
                for x in _tensor_leaves(tree) if x.is_floating_point())
-
-
-# -- timing ----------------------------------------------------------------------
-@contextlib.contextmanager
-def timed(label: str, sink: dict | None = None) -> Iterator[None]:
-    """Host seconds of the block into `sink[label]` (and the debug log).
-    The host clock sees only what the block waits for: synchronise the
-    card inside the block to time its work."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if sink is not None:
-        sink[label] = dt
-    logger.debug("%s took %.3fs", label, dt)
-
-
-def timeit_median(fn: Callable[[], Any], iters: int = 5,
-                  warmup: int = 2) -> float:
-    """Median seconds of `fn()`. Where the card is in use (CUDA
-    initialised), every call is bracketed by `torch.cuda.synchronize()`,
-    so a call's time covers its device work and none of the work queued
-    before it."""
-    def _sync() -> None:
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-
-    def _run() -> float:
-        _sync()
-        t0 = time.perf_counter()
-        fn()
-        _sync()
-        return time.perf_counter() - t0
-
-    for _ in range(warmup):
-        _run()
-    return float(np.median([_run() for _ in range(iters)]))
 
 
 # -- JSON files ------------------------------------------------------------------
