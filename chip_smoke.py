@@ -7,8 +7,9 @@ Phases, each printing one JSON line and its seconds; any failure raises
 and the script exits non-zero:
 
   1. device       card name, power limit, TF32 off for matmul and cuDNN
-  2. build        the CUDA embedding-bag and fused-lookup kernels, from the
-                  sources here, one nvcc each, in parallel
+  2. build        the CUDA embedding-bag, fused-lookup and dot-interaction
+                  kernels, from the sources here, one nvcc each, in
+                  parallel
   2b. lm_zoo      the ten LM archs at `reduced` (f32, TF32 off), each built
                   on the host from a seeded generator and its state dict
                   copied to the card: card logits against the host's
@@ -58,10 +59,20 @@ and the script exits non-zero:
                   one table at the serve shape with a warm cache; and the
                   law on a small model: tiered pooled output equals the
                   device kernel's bit for bit (hot set, refresh, update)
+  4b. interaction the dot-interaction kernel vs dot_interaction_ref on
+                  the card (f32 and bf16): the serve shape (B=2048, F=251,
+                  D=128) and the benchmark model's (16384, 9, 64), F not a
+                  multiple of the 8 x 12 tile, B under the grid and no
+                  multiple of 8 samples a block, rows of 132 and 72 bytes
+                  and rows not 16-byte aligned, the one-warp path's largest
+                  F, six passes at F=600, D=2000; one launch a call; its
+                  time, the plain version's and bmm + gather's at the two
+                  benchmark shapes beside the bound; the plain backward of
+                  the autograd route against autograd
   5. serve        dlrm_production at full width through ServingSession on
                   the `device` backend: 3 batches of 2048 med_hot queries;
-                  the kernel launches once per forward; a 64-query
-                  sub-batch's logits match the plain path
+                  the bag and interaction kernels launch once per forward;
+                  a 64-query sub-batch's logits match the plain path
   6. kernel_time  kernel, plain version and torch's embedding_bag at the
                   serve shape (CUDA events), the memory bound, the
                   registers and resident blocks per SM of the instantiation
@@ -174,7 +185,8 @@ and the script exits non-zero:
 
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
 `--stop-after PHASE` ends the run after that phase (build, lm_zoo,
-lm_serve, spmd_lm_train, parity_fused, kernel_time, kernel_diag,
+lm_serve, spmd_lm_train, parity_fused, interaction, kernel_time,
+kernel_diag,
 replay_device, replay_tiered, quickstart, spmd_dlrm, spmd_dryrun,
 serve_sharded, serve_pool, replay_tenants; a short first call for a new
 kernel or the LM path); the
@@ -217,6 +229,7 @@ from repro_torch.data import DLRMBatch  # noqa: E402
 from repro_torch.examples import quickstart, train_dlrm  # noqa: E402
 from repro_torch.kernels.embedding_bag import fused, kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.embedding_bag.grad import embedding_bag_backward  # noqa: E402
+from repro_torch.kernels.interaction import kernel as interaction  # noqa: E402
 from repro_torch.models import (DLRM, abstract_params, build_model,  # noqa: E402
                                 build_plan, model_flops)
 from repro_torch.models import moe as lm_moe  # noqa: E402
@@ -853,6 +866,178 @@ def phase_parity_fused() -> dict:
             "max_err_over_bound": max(r["max_err_over_bound"]
                                       for r in results),
             "serve_shape": serve_cmp, "law": law, "results": results}
+
+
+# the dot interaction's parity cases: (name, B, F, D, dtype); the first two
+# are the two benchmark models' shapes, timed too
+INTERACTION_CASES = (
+    ("serve", 2048, 251, 128, torch.float32),
+    ("benchmark", 16384, 9, 64, torch.float32),
+    ("serve_bf16", 2048, 251, 128, torch.bfloat16),
+    ("benchmark_bf16", 16384, 9, 64, torch.bfloat16),
+    # F = 37 is no multiple of the 8 x 12 tile, B = 13 is below the grid;
+    # D = 100 leaves a last chunk of 36 columns
+    ("ragged_tiled", 13, 37, 100, torch.float32),
+    # rows of 132 and 72 bytes: loaded element by element
+    ("rows_132B", 13, 37, 33, torch.float32),
+    ("rows_72B_bf16", 13, 37, 36, torch.bfloat16),
+    # the one-warp path: B = 13 is no multiple of its 8 samples a block
+    ("small_ragged", 13, 9, 33, torch.float32),
+    ("small_largest_f", 29, 32, 16, torch.float32),
+    ("tiled_f33", 7, 33, 128, torch.float32),
+    # 1,925 tiles: six passes, chunks of 8 columns (two stages of 64 would
+    # not fit); and D = 2000 on the tiled path at F = 5
+    ("passes", 5, 600, 64, torch.float32),
+    ("wide_d", 3, 5, 2000, torch.float32),
+)
+INTERACTION_GRAD_CASES = ((64, 251, 128), (256, 9, 64), (13, 37, 33))
+
+
+def _interaction_inputs(batch, features, dim, dtype, seed, offset=0):
+    """bottom_out [B, D] and pooled [B, F - 1, D], drawn on the card; with
+    `offset` both start that many elements into their buffers."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for shape in ((batch, dim), (batch, features - 1, dim)):
+        n = int(np.prod(shape))
+        buf = torch.empty(n + offset, device="cuda", dtype=dtype)
+        buf[offset:] = torch.randn(n, generator=gen, device="cuda")
+        out.append(buf[offset:].view(shape))
+    return out
+
+
+def _gamma(n: int) -> float:
+    """Higham's gamma_n for float32: a sum of n products in any order is
+    within gamma_n * sum |products| of the exact sum."""
+    u = 2.0 ** -24
+    return n * u / (1 - n * u)
+
+
+def phase_interaction() -> dict:
+    """Hold the dot-interaction kernel to `dot_interaction_ref` on the card
+    (TF32 off), time it at the two benchmark shapes, and check the plain
+    backward of its autograd route.
+
+    f32: each side sums the D products of a pair in its own order (the
+    kernel along d, cuBLAS in its tiles), and each is within
+    gamma_D * sum_d |x_id x_jd| of the exact sum, so the two are within
+    twice that. bf16: the kernel rounds an f32 sum once on store, so it is
+    held to the plain version on the f32 upcast of the same inputs,
+    unrounded, within 2^-8 of its magnitude beside that bound. x_0's
+    columns are copied: equal bit for bit. The backward's entries are sums
+    of F terms, in one bmm of (S + S^T) against autograd's two: 4 gamma_F
+    of the same sum of magnitudes."""
+    results, timed, grads = [], {}, []
+    failed = []
+    for name, batch, features, dim, dtype in INTERACTION_CASES:
+        for offset in ((0, 1) if name == "ragged_tiled" else (0,)):
+            bottom, pooled = _interaction_inputs(batch, features, dim, dtype,
+                                                 seed=len(results),
+                                                 offset=offset)
+            before = interaction.LAUNCHES
+            got = interaction.dot_interaction_cuda(bottom, pooled)
+            torch.cuda.synchronize()
+            info = interaction.last_launch_info()
+            expect(failed, interaction.LAUNCHES == before + 1,
+                   f"{name}: {interaction.LAUNCHES - before} launches")
+            want = interaction.dot_interaction_ref(bottom.float(),
+                                                   pooled.float())
+            mag = interaction.dot_interaction_ref(bottom.double().abs(),
+                                                  pooled.double().abs())
+            bound = 2 * _gamma(dim) * mag[:, dim:]
+            if dtype == torch.bfloat16:
+                bound = bound * (1 + 2.0 ** -8) + 2.0 ** -8 * \
+                    want[:, dim:].double().abs()
+            del mag
+            expect(failed, torch.equal(got[:, :dim], bottom),
+                   f"{name}: x_0 not copied bit for bit")
+            case = f"{name} B={batch} F={features} D={dim} {dtype} " \
+                f"offset={offset}"
+            cmp = compare(got[:, dim:], want[:, dim:], bound, case)
+            results.append({**cmp, "path": info["path"],
+                            "threads": info["threads"],
+                            "chunk": info["chunk"],
+                            "passes": info["passes"], "grid": info["grid"]})
+            del got, want, bound
+            if name in ("serve", "benchmark"):
+                timed[name] = _interaction_time(bottom, pooled, info)
+            del bottom, pooled
+    for batch, features, dim in INTERACTION_GRAD_CASES:
+        grads.append(_interaction_grad_case(batch, features, dim))
+    torch.cuda.empty_cache()
+    return {"cases": len(results), "failed": failed,
+            "max_err_over_bound": max(r["max_err_over_bound"]
+                                      for r in results),
+            "max_abs_err_f32": max(r["max_abs_err"] for r in results
+                                   if "float32" in r["case"]),
+            "results": results, "grad": grads, "timed": timed}
+
+
+def _interaction_time(bottom, pooled, info) -> dict:
+    """Kernel, plain version and the two library calls that compute the
+    pairs (the Gram bmm and the gather) by CUDA events, beside the bound:
+    FLOPs 2D - 1 a pair over the f32 FMA peak, or each input row read and
+    each output row written once over HBM bandwidth."""
+    batch, t, dim = pooled.shape
+    f = t + 1
+    pairs = f * (f - 1) // 2
+    item = bottom.element_size()
+    flops = batch * pairs * (2 * dim - 1)
+    moved = batch * f * dim * item + batch * (dim + pairs) * item
+    ops_ms = flops / PEAK_FLOPS_F32 * 1e3
+    bytes_ms = moved / HBM_BW * 1e3
+    ms = cuda_ms(lambda: interaction.dot_interaction_cuda(bottom, pooled),
+                 iters=100, warmup=20)
+    plain_ms = cuda_ms(lambda: interaction.dot_interaction_ref(bottom,
+                                                               pooled),
+                       iters=5)
+    feats = torch.cat([bottom[:, None, :], pooled], dim=1)
+    iu, ju = torch.triu_indices(f, f, offset=1, device="cuda")
+    library_ms = cuda_ms(lambda: torch.bmm(feats, feats.transpose(1, 2))[
+        :, iu, ju], iters=5)
+    del feats
+    return {"shape": [batch, f, dim], "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": "torch.bmm + the pair gather",
+            "flops": flops, "bytes_moved": moved,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_bound_ms": ops_ms, "bytes_bound_ms": bytes_ms,
+            "fraction_of_bound": max(ops_ms, bytes_ms) / ms,
+            "achieved_tflops": flops / ms / 1e9, **info}
+
+
+def _interaction_grad_case(batch, features, dim) -> dict:
+    """The CUDA route's gradients (kernel forward, plain backward) against
+    autograd through `dot_interaction_ref`, both in f32."""
+    bottom, pooled = _interaction_inputs(batch, features, dim,
+                                         torch.float32, seed=99)
+    grad = torch.randn(batch, dim + features * (features - 1) // 2,
+                       device="cuda")
+    out = []
+    for fn in (interaction.dot_interaction, interaction.dot_interaction_ref):
+        b = bottom.clone().requires_grad_()
+        p = pooled.clone().requires_grad_()
+        out.append(torch.autograd.grad(fn(b, p), (b, p), grad))
+    # sum over f of |S + S^T|[r, f] |x[f, d]|, in float64
+    x = torch.cat([bottom[:, None], pooled], 1).double().abs()
+    iu, ju = torch.triu_indices(features, features, 1, device="cuda")
+    s = torch.zeros(batch, features, features, device="cuda",
+                    dtype=torch.float64)
+    s[:, iu, ju] = grad[:, dim:].double().abs()
+    mag = torch.bmm(s + s.transpose(1, 2), x)
+    u = 2.0 ** -24
+    bound = 4 * _gamma(features) * mag
+    # bottom_out's gradient adds z's first D columns: one more rounding
+    bounds = (bound[:, 0] + 2 * u * (grad[:, :dim].double().abs()
+                                     + mag[:, 0]),
+              bound[:, 1:])
+    cmp = [compare(g, w, bd, f"grad {name} B={batch} F={features} D={dim}")
+           for g, w, bd, name in zip(out[0], out[1], bounds,
+                                     ("bottom_out", "pooled"))]
+    return {"shape": [batch, features, dim],
+            "max_abs_err": max(c["max_abs_err"] for c in cmp),
+            "max_err_over_bound": max(c["max_err_over_bound"] for c in cmp)}
 
 
 def host_available_bytes() -> int:
@@ -3833,11 +4018,12 @@ def main() -> int:
 
     # 2. build: one nvcc per library, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         infos = list(ex.map(lambda build: build(),
-                            (kernel.build, fused.build)))
+                            (kernel.build, fused.build, interaction.build)))
     libs = {}
-    for lib, info in zip(("embedding_bag", "fused_lookup"), infos):
+    for lib, info in zip(("embedding_bag", "fused_lookup",
+                          "dot_interaction"), infos):
         libs[lib] = {
             "path": os.path.relpath(info["path"], ROOT),
             "nvcc_seconds": info["seconds"], "cached": info["cached"],
@@ -3887,6 +4073,14 @@ def main() -> int:
     if stop("parity_fused"):
         return 0
 
+    # 4b. interaction: the dot-interaction kernel against its plain version
+    t0 = time.perf_counter()
+    inter = phase_interaction()
+    emit("interaction", **inter, seconds=time.perf_counter() - t0)
+    check(not inter["failed"], f"interaction: {inter['failed']}")
+    if stop("interaction"):
+        return 0
+
     # 5. serve
     t0 = time.perf_counter()
     # shard_pad_tables pads 250 -> 256 tables for a 256-device slice; one
@@ -3917,7 +4111,7 @@ def main() -> int:
     sample_s = time.perf_counter() - t1
 
     scores = []
-    kernel.LAUNCHES = 0
+    kernel.LAUNCHES = interaction.LAUNCHES = 0
     sess = ServingSession(model, batcher=BatcherConfig(max_batch=B,
                                                        max_wait_s=0.0))
     sess.server.on_batch = lambda batch, s: scores.append(s.copy())
@@ -3925,6 +4119,7 @@ def main() -> int:
         sess.submit_batch(dense, idx)
     sess.drain(timeout_s=600.0)
     launches = kernel.LAUNCHES
+    interaction_launches = interaction.LAUNCHES
     lat = np.asarray(sess.stats.batch_latencies_s) * 1e3
     forwards = 1 + len(lat)                       # warmup + served batches
     sess.close()
@@ -3932,6 +4127,9 @@ def main() -> int:
           f"served {sess.stats.served} queries in {len(lat)} batches")
     check(launches == forwards,
           f"kernel launched {launches} times over {forwards} forwards")
+    check(interaction_launches == forwards,
+          f"interaction kernel launched {interaction_launches} times over "
+          f"{forwards} forwards")
     logits = np.concatenate(scores)
     check(logits.shape == (B * SERVE_BATCHES,), f"logits {logits.shape}")
     check(bool(np.isfinite(logits).all()), "non-finite logits")
@@ -3958,7 +4156,8 @@ def main() -> int:
          batches=len(lat), batch_ms=lat.tolist(),
          p50_batch_ms=float(np.percentile(lat, 50)),
          p99_batch_ms=float(np.percentile(lat, 99)),
-         kernel_launches=launches, forwards=forwards,
+         kernel_launches=launches,
+         interaction_launches=interaction_launches, forwards=forwards,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          table_bytes=emb.table_bytes(), init_s=init_s, sample_s=sample_s,
          logits_mean=float(logits.mean()), logits_std=float(logits.std()),
@@ -4189,7 +4388,16 @@ def main() -> int:
             launches_pool=pool["before_migration"]["fused"],
             launches_pool_migrated=pool["after_migration"]["fused"],
             launches_tenants={leg: out["fused_launches"] for leg, out in
-                              tenants["legs"].items()})]}),
+                              tenants["legs"].items()}),
+        row("dot_interaction",
+            "src/repro_torch/kernels/interaction/csrc/dot_interaction.cu",
+            None, interaction_launches, inter["max_abs_err_f32"],
+            inter["timed"]["serve"]["ms"],
+            inter["timed"]["serve"]["plain_ms"],
+            inter["timed"]["serve"]["bound_ms"],
+            inter["timed"]["serve"]["bound_by"],
+            inter["timed"]["serve"]["library_ms"], inter["timed"]["serve"],
+            benchmark_shape=inter["timed"]["benchmark"])]}),
           flush=True)
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)

@@ -1,0 +1,193 @@
+"""DLRM's dot interaction: the CUDA kernel, its plain version and the
+dispatch between them.
+
+    z = [x_0 | <x_i, x_j> for 0 <= i < j < F]      F = T + 1
+
+where x_0 is the bottom MLP's output [B, D] and x_1 .. x_T the pooled
+bags [B, T, D]; the pairs are in `torch.triu_indices(F, F, 1)` order, as
+`jnp.triu_indices` lists them, so z is the top MLP's input row for row.
+
+`csrc/dot_interaction.cu` replaces no TPU kernel (the JAX package's
+`DLRM._interact` is plain `jnp`); it replaces the plain version's four
+library calls (a cat, the Gram `bmm`, the pair gather and a cat) with one
+launch that computes only the pairs and writes z directly. It is built
+with `nvcc` for `sm_90a` into a ctypes library by the bag kernel's
+`build_library`, at first use, into `build/repro_torch_kernels/`; a
+missing `nvcc` or a failed build raises.
+
+`dot_interaction` takes the plain version for CPU tensors and the kernel
+for CUDA tensors, with no fallback between them. On the CUDA route the
+gradient is `DotInteraction`'s backward, the plain math of
+`dot_interaction_backward`: the TPU package has no kernel there either.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.embedding_bag.kernel import build_library
+
+#: Launches of the CUDA kernel since the count was last set to 0; only
+#: `dot_interaction_cuda` adds to it, once a launch, under a lock.
+LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+_LOAD_LOCK = threading.Lock()
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "dot_interaction.cu",)
+MAX_FEATURES = 1024        # kMaxFeatures in csrc/dot_interaction.cu
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib = None
+
+
+def build() -> dict:
+    """Compile the dot-interaction library (see `build_library`)."""
+    return build_library("dot_interaction", SOURCES)
+
+
+def _count_launch() -> None:
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+
+
+def _library():
+    global _lib
+    with _LOAD_LOCK:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(build()["path"])
+        ll, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+        lib.dot_interaction_launch.argtypes = [ptr, ptr, ptr, ll, i32, i32,
+                                               i32, ptr]
+        lib.dot_interaction_launch.restype = i32
+        lib.dot_interaction_last_launch_info.argtypes = [ptr]
+        lib.dot_interaction_last_launch_info.restype = i32
+        lib.dot_interaction_error_string.argtypes = [i32]
+        lib.dot_interaction_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return _lib
+
+
+LAUNCH_INFO_KEYS = ("registers", "blocks_per_sm", "local_bytes",
+                    "static_shared_bytes", "threads",
+                    "dynamic_shared_bytes", "path", "chunk", "passes",
+                    "grid")   # dot_interaction_last_launch_info
+
+
+def last_launch_info() -> dict:
+    """Registers per thread, resident blocks per SM, spill bytes and the
+    launch shape of the instantiation launched last; `path` is 0 for one
+    warp a sample, 1 for the tiled path."""
+    lib = _library()
+    out = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
+    err = lib.dot_interaction_last_launch_info(out)
+    if err:
+        raise RuntimeError("launch info query failed: "
+                           + lib.dot_interaction_error_string(err).decode())
+    return dict(zip(LAUNCH_INFO_KEYS, out))
+
+
+def dot_interaction_ref(bottom_out: torch.Tensor,
+                        pooled: torch.Tensor) -> torch.Tensor:
+    """The plain version: bottom_out [B, D], pooled [B, T, D] ->
+    [B, D + C(T + 1, 2)] through the Gram matrix of the T + 1 rows."""
+    feats = torch.cat([bottom_out[:, None, :], pooled], dim=1)
+    gram = torch.bmm(feats, feats.transpose(1, 2))      # [B, F, F]
+    f = feats.shape[1]
+    iu, ju = torch.triu_indices(f, f, offset=1, device=feats.device)
+    return torch.cat([bottom_out, gram[:, iu, ju]], dim=1)
+
+
+def dot_interaction_backward(bottom_out: torch.Tensor, pooled: torch.Tensor,
+                             grad: torch.Tensor):
+    """The gradients of (bottom_out, pooled) from the gradient of z: the
+    pairs' part scattered into an upper triangle S [B, F, F], and
+    d feats = (S + Sᵀ) @ feats; bottom_out also takes z's first D
+    columns."""
+    feats = torch.cat([bottom_out[:, None, :], pooled], dim=1)
+    batch, f, dim = feats.shape
+    iu, ju = torch.triu_indices(f, f, offset=1, device=feats.device)
+    s = grad.new_zeros((batch, f, f))
+    s[:, iu, ju] = grad[:, dim:]
+    g = torch.bmm(s + s.transpose(1, 2), feats)
+    return grad[:, :dim] + g[:, 0], g[:, 1:]
+
+
+def dot_interaction_cuda(bottom_out: torch.Tensor,
+                         pooled: torch.Tensor) -> torch.Tensor:
+    """One launch of the CUDA kernel.
+
+    bottom_out: [B, D] float32 or bfloat16, contiguous, on a CUDA device
+    pooled:     [B, T, D] of the same type, contiguous, on the same device,
+                T + 1 <= MAX_FEATURES
+    returns:    [B, D + C(T + 1, 2)] in their type
+    """
+    if (bottom_out.dtype not in _DTYPE_CODES
+            or pooled.dtype != bottom_out.dtype):
+        raise ValueError(f"bottom_out and pooled must both be float32 or "
+                         f"bfloat16, got {bottom_out.dtype} and "
+                         f"{pooled.dtype}")
+    if (bottom_out.dim() != 2 or pooled.dim() != 3
+            or pooled.shape[0] != bottom_out.shape[0]
+            or pooled.shape[2] != bottom_out.shape[1]
+            or bottom_out.shape[1] < 1):
+        raise ValueError(f"want bottom_out [B, D] and pooled [B, T, D] with "
+                         f"D >= 1, got {tuple(bottom_out.shape)} and "
+                         f"{tuple(pooled.shape)}")
+    if not (bottom_out.is_contiguous() and pooled.is_contiguous()):
+        raise ValueError("bottom_out and pooled must be contiguous")
+    batch, num_tables, dim = pooled.shape
+    features = num_tables + 1
+    if features > MAX_FEATURES:
+        raise ValueError(f"T + 1 = {features} features; the kernel takes "
+                         f"at most {MAX_FEATURES}")
+    if not (bottom_out.is_cuda and pooled.device == bottom_out.device):
+        raise ValueError(f"dot_interaction_cuda needs both on one CUDA "
+                         f"device, got {bottom_out.device} and "
+                         f"{pooled.device}; CPU tensors go to "
+                         f"dot_interaction_ref")
+    out = torch.empty((batch, dim + features * (features - 1) // 2),
+                      dtype=bottom_out.dtype, device=bottom_out.device)
+    if batch == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(bottom_out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dot_interaction_launch(
+            bottom_out.data_ptr(), pooled.data_ptr(), out.data_ptr(), batch,
+            features, dim, _DTYPE_CODES[bottom_out.dtype], stream)
+    if err:
+        raise RuntimeError("dot_interaction kernel launch failed: "
+                           + lib.dot_interaction_error_string(err).decode())
+    _count_launch()
+    return out
+
+
+class DotInteraction(torch.autograd.Function):
+    """The kernel forward with the plain backward."""
+
+    @staticmethod
+    def forward(ctx, bottom_out, pooled):
+        ctx.save_for_backward(bottom_out, pooled)
+        return dot_interaction_cuda(bottom_out, pooled)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return dot_interaction_backward(*ctx.saved_tensors, grad)
+
+
+def dot_interaction(bottom_out: torch.Tensor,
+                    pooled: torch.Tensor) -> torch.Tensor:
+    """The dot interaction: the kernel for CUDA tensors, the plain version
+    for CPU tensors. Either takes any layout: the kernel's inputs are made
+    contiguous first (the local shards of the SPMD steps are strided views;
+    the serving path's are contiguous already, and pass as they are)."""
+    if bottom_out.is_cuda:
+        return DotInteraction.apply(bottom_out.contiguous(),
+                                    pooled.contiguous())
+    return dot_interaction_ref(bottom_out, pooled)

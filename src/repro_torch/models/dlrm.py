@@ -5,8 +5,9 @@ Feature interaction (pairwise dot product) | Top MLP -> CTR logit.
 
 The embedding stage is an EmbeddingBagCollection (core/embedding.py) — the
 paper's technique (the prefetching CUDA embedding-bag kernel) plugs in
-through its EmbeddingStageConfig. The MLPs and the interaction are plain
-matrix products (cuBLAS on the card).
+through its EmbeddingStageConfig. The MLPs are plain matrix products
+(cuBLAS on the card); the dot interaction is one CUDA kernel on the card
+(kernels/interaction) and its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.embedding import EmbeddingBagCollection, EmbeddingStageConfig
+from repro_torch.kernels.interaction import dot_interaction
 from repro_torch.models import pspec
 from repro_torch.models.layers import MLPTower
 from repro_torch.models.pspec import P
@@ -69,9 +71,6 @@ class DLRM(nn.Module):
                                           tables=tables)
         self.top = MLPTower((cfg.interaction_dim(), *cfg.top_mlp), dt,
                             generator=gen, device=device)
-        t = cfg.embedding.num_tables + 1
-        self.register_buffer("_pairs", torch.triu_indices(
-            t, t, offset=1, device=device), persistent=False)
 
     @property
     def device(self) -> torch.device:
@@ -84,7 +83,8 @@ class DLRM(nn.Module):
         On DTensors each rank interacts its own rows (a `shard_map_compat`
         region over bottom_out's batch shards): the pair gather's backward
         (an index_put over two index tensors) has no DTensor sharding rule
-        in every torch release."""
+        in every torch release, and the interaction kernel takes plain
+        tensors."""
         if pspec.is_dtensor(bottom_out):
             b_ax = pspec.spec_of(bottom_out)[0]
 
@@ -96,12 +96,10 @@ class DLRM(nn.Module):
 
             return local(bottom_out, pooled)
         with span("dlrm.interact"):
-            feats = torch.cat([bottom_out[:, None, :], pooled], dim=1)
             if self.cfg.interaction == "dot":
-                gram = torch.bmm(feats, feats.transpose(1, 2))  # [B, T+1, T+1]
-                iu, ju = self._pairs      # row-major, as jnp.triu_indices
-                pairs = gram[:, iu, ju]                      # [B, C(T+1,2)]
-                return torch.cat([bottom_out, pairs], dim=1)
+                # [B, D + C(T+1, 2)], pairs row-major as jnp.triu_indices
+                return dot_interaction(bottom_out, pooled)
+            feats = torch.cat([bottom_out[:, None, :], pooled], dim=1)
             return feats.reshape(feats.shape[0], -1)
 
     def forward(self, dense: torch.Tensor, sparse_indices: torch.Tensor,
