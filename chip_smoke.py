@@ -7,9 +7,9 @@ Phases, each printing one JSON line and its seconds; any failure raises
 and the script exits non-zero:
 
   1. device       card name, power limit, TF32 off for matmul and cuDNN
-  2. build        the CUDA embedding-bag, fused-lookup and dot-interaction
-                  kernels, from the sources here, one nvcc each, in
-                  parallel
+  2. build        the CUDA embedding-bag (stacked and ragged-tables),
+                  fused-lookup and dot-interaction libraries, from the
+                  sources here, one nvcc each, in parallel
   2b. lm_zoo      the ten LM archs at `reduced` (f32, TF32 off), each built
                   on the host from a seeded generator and its state dict
                   copied to the card: card logits against the host's
@@ -69,6 +69,15 @@ and the script exits non-zero:
                   time, the plain version's and bmm + gather's at the two
                   benchmark shapes beside the bound; the plain backward of
                   the autograd route against autograd
+  4c. ragged      the ragged-tables bag kernel vs ref.ragged_tables_bag_ref
+                  (f32 and bf16 tables, the scalar path, dlrm-dcnv2's bag
+                  sizes), NaN bags for out-of-range ids, the stacked
+                  kernel's bits on equal f32 tables; then dlrm-dcnv2 at
+                  full width (26 tables, 52.27 GB bf16) through
+                  DLRM.forward at batch 8,192: finite logits, one bag
+                  launch, the pooled bags against the plain version at
+                  the same bound, the kernel's time, the plain version's
+                  and F.embedding_bag's beside the byte bound
   5. serve        dlrm_production at full width through ServingSession on
                   the `device` backend: 3 batches of 2048 med_hot queries;
                   the bag and interaction kernels launch once per forward;
@@ -185,7 +194,7 @@ and the script exits non-zero:
 
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
 `--stop-after PHASE` ends the run after that phase (build, lm_zoo,
-lm_serve, spmd_lm_train, parity_fused, interaction, kernel_time,
+lm_serve, spmd_lm_train, parity_fused, interaction, ragged, kernel_time,
 kernel_diag,
 replay_device, replay_tiered, quickstart, spmd_dlrm, spmd_dryrun,
 serve_sharded, serve_pool, replay_tenants; a short first call for a new
@@ -222,6 +231,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.checkpoint import CheckpointManager, ModelUpdateStream  # noqa: E402
 from repro_torch.configs import LM_ARCHS, get_config, reduced  # noqa: E402
 from repro_torch.configs.dlrm_production import CONFIG  # noqa: E402
+from repro_torch.configs.dlrm_dcnv2 import CONFIG as DCNV2  # noqa: E402
 from repro_torch.core.access_patterns import (PAPER_UNIQUE_PCT,  # noqa: E402
                                               make_pattern)
 from repro_torch.core.embedding import _pool_rows_core, gather_rows  # noqa: E402
@@ -891,6 +901,20 @@ INTERACTION_CASES = (
     ("wide_d", 3, 5, 2000, torch.float32),
 )
 INTERACTION_GRAD_CASES = ((64, 251, 128), (256, 9, 64), (13, 37, 33))
+# ragged: name, table rows, bag sizes, dim, tables' dtype, batch; the
+# last case keeps dlrm-dcnv2's bag sizes and dim with its tables cut to
+# 100,000 rows at most (the full-width forward follows)
+RAGGED_CASES = (
+    ("small", (3, 10, 40, 1000, 7), (1, 3, 2, 12, 1), 16, torch.float32,
+     13),
+    ("small_bf16", (3, 10, 40, 1000, 7), (1, 3, 2, 12, 1), 16,
+     torch.bfloat16, 13),
+    ("scalar", (50, 70, 9), (5, 33, 1), 99, torch.float32, 9),
+    ("dcnv2_bags", tuple(min(r, 100_000) for r in DCNV2.embedding.table_rows),
+     DCNV2.embedding.table_pooling, 128, torch.bfloat16, 513),
+)
+RAGGED_STACKED = (6, 5000, 20, 128, 257)   # T, R, L, D, B: equal tables
+RAGGED_BATCH = 8192                        # the benchmark cell's batch
 
 
 def _interaction_inputs(batch, features, dim, dtype, seed, offset=0):
@@ -1038,6 +1062,224 @@ def _interaction_grad_case(batch, features, dim) -> dict:
     return {"shape": [batch, features, dim],
             "max_abs_err": max(c["max_abs_err"] for c in cmp),
             "max_err_over_bound": max(c["max_err_over_bound"] for c in cmp)}
+
+
+def _ragged_indices(rows, bags, batch: int, gen) -> torch.Tensor:
+    """[batch, sum(bags)] int32 on the card: table t's ids uniform in
+    [0, rows[t]) at its own columns."""
+    return torch.cat([torch.randint(0, r, (batch, l), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                      for r, l in zip(rows, bags)], dim=1)
+
+
+def _ragged_launch(tables, idx, layout, opts=kernel.LaunchGeometry()):
+    dev = tables.device
+    return kernel.embedding_bag_ragged_cuda(
+        tables, idx,
+        torch.tensor(layout.row_offsets(), dtype=torch.int64, device=dev),
+        torch.tensor(layout.col_offsets(), dtype=torch.int32, device=dev),
+        torch.tensor(layout.table_order(), dtype=torch.int32, device=dev),
+        opts)
+
+
+def phase_ragged() -> dict:
+    """Hold the ragged-tables bag kernel (`csrc/ragged_bag.cu`) to its plain
+    version `ref.ragged_tables_bag_ref`, and to the stacked kernel bit for
+    bit on equal f32 tables; then run dlrm-dcnv2 at full width through
+    `DLRM.forward` and time the kernel there.
+
+    Both sides sum the rows widened to f32 exactly, each in its own order,
+    so the kernel is held to `2·eps_f32·Σ|x|` an entry. Out-of-range ids
+    give NaN bags. The full-width forward: every logit finite, one bag
+    launch, the kernel's time beside its byte bound (each distinct row,
+    each index and each f32 bag once), the plain version's and
+    `F.embedding_bag`'s time on the same ids, and the largest activation
+    after each cross layer (the init's check)."""
+    failed, results = [], []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    eps = float(torch.finfo(torch.float32).eps)
+    for name, rows, bags, dim, dtype, batch in RAGGED_CASES:
+        layout = kernel.RaggedLayout(rows, bags)
+        tables = (torch.randn((sum(rows), dim), generator=gen,
+                              device="cuda") * dim ** -0.5).to(dtype)
+        idx = _ragged_indices(rows, bags, batch, gen)
+        before = kernel.LAUNCHES
+        got = _ragged_launch(tables, idx, layout)
+        torch.cuda.synchronize()
+        info = kernel.ragged_last_launch_info()
+        expect(failed, kernel.LAUNCHES == before + 1,
+               f"{name}: {kernel.LAUNCHES - before} launches")
+        expect(failed, got.dtype == torch.float32,
+               f"{name}: pooled in {got.dtype}")
+        want = ref.ragged_tables_bag_ref(tables, idx, layout.row_offsets(),
+                                         layout.col_offsets())
+        bound = 2 * eps * ref.ragged_tables_bag_ref(
+            tables.float().abs(), idx, layout.row_offsets(),
+            layout.col_offsets())
+        results.append({**compare(got, want, bound,
+                                  f"{name} B={batch} D={dim} {dtype}"),
+                        "ring_depth": info["ring_depth"],
+                        "registers": info["registers"],
+                        "local_bytes": info["local_bytes"]})
+    # ids outside [0, R_t) make their bag NaN, and no other
+    rows, bags = (50, 70, 9), (5, 33, 1)
+    layout = kernel.RaggedLayout(rows, bags)
+    tables = torch.randn((sum(rows), 32), generator=gen, device="cuda")
+    idx = _ragged_indices(rows, bags, 4, gen)
+    idx[0, 5] = -1            # table 1's first id of sample 0
+    idx[2, 38] = 9            # table 2's one id of sample 2, out of 9 rows
+    got = _ragged_launch(tables, idx, layout)
+    nan = torch.zeros((4, 3), dtype=torch.bool, device="cuda")
+    nan[0, 1] = nan[2, 2] = True
+    expect(failed, torch.equal(torch.isnan(got).any(dim=2), nan),
+           "out-of-range ids: the NaN bags are not exactly the bad ones")
+    # equal tables and bag sizes: the stacked kernel's bits
+    t_n, r_n, pool, dim, batch = RAGGED_STACKED
+    stacked = torch.randn((t_n, r_n, dim), generator=gen, device="cuda")
+    idx3 = torch.randint(0, r_n, (batch, t_n, pool), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    same = torch.equal(
+        _ragged_launch(stacked.reshape(t_n * r_n, dim),
+                       idx3.reshape(batch, -1),
+                       kernel.RaggedLayout((r_n,) * t_n, (pool,) * t_n)),
+        kernel.embedding_bag_cuda(stacked, idx3))
+    expect(failed, same, "equal f32 tables: not the stacked kernel's bits")
+    del tables, idx, got, stacked, idx3
+    torch.cuda.empty_cache()
+    full = _ragged_full_width(failed)
+    return {"cases": len(results), "failed": failed,
+            "stacked_bit_for_bit": same,
+            "max_abs_err": max(r["max_abs_err"] for r in results),
+            "max_err_over_bound": max(r["max_err_over_bound"]
+                                      for r in results),
+            "results": results, "full_width": full}
+
+
+def _ragged_abs_sums(tables, idx, layout) -> torch.Tensor:
+    """Σ|x| of each ragged bag over its rows widened to f32, [B, T, D]:
+    `ref.ragged_tables_bag_ref` on |tables|, one table's rows at a time
+    (a whole f32 |tables| of dlrm-dcnv2 would be 104.5 GB)."""
+    ro, co = layout.row_offsets(), layout.col_offsets()
+    return torch.stack(
+        [tables[idx[:, co[t]:co[t + 1]].long() + ro[t]].float().abs().sum(1)
+         for t in range(layout.num_tables)], dim=1)
+
+
+def _ragged_full_width(failed: list) -> dict:
+    """dlrm-dcnv2 at its published widths on `DLRM.forward`, uniform ids,
+    batch 8,192: the pooled bags held to the plain version at the small
+    cases' 2·eps·Σ|x| bound (here row offsets times the row stride pass
+    2**31 elements), then timed."""
+    cfg = DCNV2
+    emb = cfg.embedding
+    layout = emb.layout()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = DLRM(cfg, device="cuda", seed=0).eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    idx = _ragged_indices(emb.table_rows, emb.table_pooling, RAGGED_BATCH,
+                          gen)
+    dense = torch.rand((RAGGED_BATCH, cfg.dense_features), generator=gen,
+                       device="cuda")
+    kernel.LAUNCHES = 0
+    with torch.inference_mode():
+        logits = model(dense, idx)
+        torch.cuda.synchronize()
+        launches = kernel.LAUNCHES
+        info = kernel.ragged_last_launch_info()
+        expect(failed, launches == 1, f"full width: {launches} bag launches")
+        expect(failed, logits.shape == (RAGGED_BATCH,)
+               and bool(torch.isfinite(logits).all()),
+               "full width: logits not finite")
+        pooled = model.ebc(idx)
+        want = ref.ragged_tables_bag_ref(model.ebc.tables, idx,
+                                         layout.row_offsets(),
+                                         layout.col_offsets())
+        bound = 2 * float(torch.finfo(torch.float32).eps) * _ragged_abs_sums(
+            model.ebc.tables, idx, layout)
+        err = (pooled - want).abs()
+        max_abs_err = float(err.max())
+        over = float((err / bound.clamp_min(1e-30)).max())
+        expect(failed, bool(torch.isfinite(pooled).all())
+               and bool((err <= bound).all()),
+               f"full width: pooled bags off the plain version by "
+               f"{max_abs_err:.3e}, {over:.3f} of the 2·eps·Σ|x| bound")
+        del want, bound, err
+        x0 = torch.cat([model.bottom(dense, final_act=True),
+                        pooled.reshape(RAGGED_BATCH, -1)], dim=1)
+        x, cross_max = x0, []
+        for i in range(cfg.dcn_layers):
+            y = torch.addmm(model.cross.get_parameter(f"b{i}"),
+                            x @ model.cross.get_parameter(f"v{i}"),
+                            model.cross.get_parameter(f"w{i}"))
+            x = torch.addcmul(x, x0, y)
+            cross_max.append(float(x.abs().max()))
+        forward_ms = cuda_ms(lambda: model(dense, idx), iters=20, warmup=3)
+        ms = cuda_ms(lambda: model.ebc(idx), iters=50, warmup=5)
+        flat = (idx.long() + torch.repeat_interleave(
+            torch.tensor(layout.row_offsets()[:-1], device="cuda"),
+            torch.tensor(layout.pooling, device="cuda"))).reshape(-1)
+        plain_ms = cuda_ms(lambda: ref.ragged_tables_bag_ref(
+            model.ebc.tables, idx, layout.row_offsets(),
+            layout.col_offsets()), iters=3)
+        offsets = (torch.arange(RAGGED_BATCH, device="cuda")[:, None]
+                   * layout.cols + torch.tensor(
+                       layout.col_offsets()[:-1], device="cuda")).reshape(-1)
+        library_ms = cuda_ms(lambda: F.embedding_bag(
+            flat, model.ebc.tables, offsets, mode="sum"), iters=10)
+    distinct = int(torch.unique(flat).numel())
+    moved = (distinct * emb.dim * emb.torch_dtype.itemsize
+             + idx.numel() * 4 + RAGGED_BATCH * emb.num_tables * emb.dim * 4)
+    bound_ms = moved / HBM_BW * 1e3
+    out = {"tables": emb.num_tables, "rows": sum(emb.table_rows),
+           "table_bytes": emb.table_bytes(),
+           "dense_params": sum(p.numel() for p in model.parameters()),
+           "build_s": build_s, "batch": RAGGED_BATCH,
+           "lookups": idx.numel(), "distinct_rows": distinct,
+           "bag_launches": launches, "max_abs_err": max_abs_err,
+           "max_err_over_bound": over,
+           "logits_abs_max": float(logits.abs().max()),
+           "logits_std": float(logits.std()),
+           "pooled_abs_max": float(pooled.abs().max()),
+           "cross_abs_max": cross_max, "forward_ms": forward_ms,
+           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "F.embedding_bag over the flat ids and offsets",
+           "bytes_moved": moved, "bound_ms": bound_ms,
+           "fraction_of_bound": bound_ms / ms,
+           "peak_bytes": torch.cuda.max_memory_allocated(), **info}
+    del model, idx, dense, logits, pooled, x0, x, y, flat, offsets
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
+               bound_ms, bound_by, library_ms, info, **extra) -> dict:
+    """One kernel of the final `kernels` line."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "registers": info["registers"],
+            "blocks_per_sm": info["blocks_per_sm"],
+            "fraction_of_bound": bound_ms / ms, **extra}
+
+
+def ragged_kernel_row(ragged: dict) -> dict:
+    """The ragged bag kernel's row of the `kernels` line, from the
+    `ragged` phase: timed at dlrm-dcnv2's full width, its error the
+    largest of the small cases and the full-width forward."""
+    full = ragged["full_width"]
+    return kernel_row(
+        "ragged_bag", "src/repro_torch/kernels/embedding_bag/csrc/"
+        "ragged_bag.cu", None, full["bag_launches"],
+        max(ragged["max_abs_err"], full["max_abs_err"]), full["kernel_ms"],
+        full["plain_ms"], full["bound_ms"], "bytes", full["library_ms"],
+        full, max_err_over_bound=max(ragged["max_err_over_bound"],
+                                     full["max_err_over_bound"]))
 
 
 def host_available_bytes() -> int:
@@ -4081,6 +4323,14 @@ def main() -> int:
     if stop("interaction"):
         return 0
 
+    # 4c. ragged: the ragged-tables bag kernel, and dlrm-dcnv2 at full width
+    t0 = time.perf_counter()
+    ragged = phase_ragged()
+    emit("ragged", **ragged, seconds=time.perf_counter() - t0)
+    check(not ragged["failed"], f"ragged: {ragged['failed']}")
+    if stop("ragged"):
+        return 0
+
     # 5. serve
     t0 = time.perf_counter()
     # shard_pad_tables pads 250 -> 256 tables for a 256-device slice; one
@@ -4333,16 +4583,7 @@ def main() -> int:
         return 0
 
     # 9. kernels
-    def row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
-            bound_ms, bound_by, library_ms, info, **extra):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms,
-                "registers": info["registers"],
-                "blocks_per_sm": info["blocks_per_sm"],
-                "fraction_of_bound": bound_ms / ms, **extra}
+    row = kernel_row
     csrc = "src/repro_torch/kernels/embedding_bag/csrc/"
     print(json.dumps({"kernels": [
         row("embedding_bag", csrc + "embedding_bag.cu",
@@ -4397,7 +4638,8 @@ def main() -> int:
             inter["timed"]["serve"]["bound_ms"],
             inter["timed"]["serve"]["bound_by"],
             inter["timed"]["serve"]["library_ms"], inter["timed"]["serve"],
-            benchmark_shape=inter["timed"]["benchmark"])]}),
+            benchmark_shape=inter["timed"]["benchmark"]),
+        ragged_kernel_row(ragged)]}),
           flush=True)
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)

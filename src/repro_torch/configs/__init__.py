@@ -1,7 +1,9 @@
 """Config registry: `--arch <id>` resolution + reduced smoke-test variants.
 
 The ten LM architectures (shapes only, copied value for value from the
-JAX package's configs with their `source` tags) and `dlrm-production`.
+JAX package's configs with their `source` tags), `dlrm-production` and
+MLPerf's `dlrm-dcnv2` (the port's only: the JAX package has no ragged
+tables or cross network).
 """
 from __future__ import annotations
 
@@ -24,13 +26,15 @@ _ARCH_MODULES = {
     "whisper-medium": "whisper_medium",
 }
 LM_ARCHS = tuple(_ARCH_MODULES)
-ALL_ARCHS = LM_ARCHS + ("dlrm-production",)
+_DLRM_MODULES = {"dlrm-production": "dlrm_production",
+                 "dlrm-dcnv2": "dlrm_dcnv2"}
+ALL_ARCHS = LM_ARCHS + tuple(_DLRM_MODULES)
 
 
 def get_config(arch: str):
-    if arch == "dlrm-production":
+    if arch in _DLRM_MODULES:
         return importlib.import_module(
-            "repro_torch.configs.dlrm_production").CONFIG
+            f"repro_torch.configs.{_DLRM_MODULES[arch]}").CONFIG
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; choose from {ALL_ARCHS}")
     return importlib.import_module(

@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import hot_cache
-from repro_torch.kernels.embedding_bag import EmbeddingBagOpts
+from repro_torch.kernels.embedding_bag import EmbeddingBagOpts, RaggedLayout
 from repro_torch.tracing import span
 from repro_torch.utils import resolve_device, torch_dtype
 
@@ -65,6 +65,11 @@ def _pool_rows_core(rows: torch.Tensor, weights: torch.Tensor | None,
     return pooled
 
 
+#: rows one call draws when a collection draws ragged tables, in place:
+#: 40 M-row tables are drawn by launches of bounded size
+RAGGED_DRAW_ROWS = 1 << 22
+
+
 @dataclasses.dataclass(frozen=True)
 class EmbeddingStageConfig:
     num_tables: int = 250          # paper §V
@@ -84,6 +89,9 @@ class EmbeddingStageConfig:
     # device count (whole-table sharding); never looked up. 0 = none.
     shard_pad_tables: int = 0
 
+    #: tables of different sizes: `RaggedStageConfig`
+    ragged = False
+
     @property
     def torch_dtype(self) -> torch.dtype:
         return torch_dtype(self.dtype)
@@ -99,6 +107,34 @@ class EmbeddingStageConfig:
             num_hot=self.pinned_rows,
             mode=self.combine,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class RaggedStageConfig(EmbeddingStageConfig):
+    """An embedding stage of tables of different sizes: the rows and the
+    lookups a bag of each table. `num_tables` is their length, `rows` and
+    `pooling` are not read, and the collection holds the tables as one
+    flat [sum(table_rows), dim] buffer (`kernels.embedding_bag
+    .RaggedLayout`). The stacked stage's fields stay as they are, so its
+    config still names exactly the JAX package's fields."""
+
+    table_rows: tuple[int, ...] = ()
+    table_pooling: tuple[int, ...] = ()
+
+    ragged = True
+
+    def __post_init__(self):
+        rows, pooling = tuple(self.table_rows), tuple(self.table_pooling)
+        RaggedLayout(rows, pooling)          # raises on a bad pair
+        object.__setattr__(self, "table_rows", rows)
+        object.__setattr__(self, "table_pooling", pooling)
+        object.__setattr__(self, "num_tables", len(rows))
+
+    def layout(self) -> RaggedLayout:
+        return RaggedLayout(self.table_rows, self.table_pooling)
+
+    def table_bytes(self) -> int:
+        return sum(self.table_rows) * self.dim * self.torch_dtype.itemsize
 
 
 class EmbeddingBagCollection(nn.Module):
@@ -121,8 +157,13 @@ class EmbeddingBagCollection(nn.Module):
         # Resolve the backend FIRST: unknown names fail before any
         # allocation. Lazy import: storage imports core.embedding.
         from repro_torch import storage as storage_registry
+        if cfg.ragged:
+            self._check_ragged(plans)
         self.storage = storage_registry.create(cfg.storage, self)
         resident = self.storage.capabilities().device_resident
+        if cfg.ragged:
+            self._init_ragged(generator, tables)
+            return
         # One plan per table; identity when pinning is off.
         if plans is None:
             plans = [hot_cache.identity_plan(cfg.rows, cfg.pinned_rows)
@@ -166,6 +207,56 @@ class EmbeddingBagCollection(nn.Module):
                 tables[t] = plan.reorder_table(tables[t])
         self.register_buffer("tables", tables)
 
+    def _check_ragged(self, plans) -> None:
+        """Refuse what the ragged path does not handle, before anything is
+        allocated."""
+        cfg = self.cfg
+        refused = []
+        if cfg.storage != "device":
+            refused.append(f"storage {cfg.storage!r} (only 'device')")
+        if cfg.pinned_rows > 0 or plans is not None:
+            refused.append("hot-row pinning (pinned_rows > 0 or plans)")
+        if cfg.combine != "sum":
+            refused.append(f"combine {cfg.combine!r} (only 'sum')")
+        if cfg.shard_pad_tables:
+            refused.append("shard_pad_tables (table-wise sharding)")
+        if refused:
+            raise ValueError("tables of different sizes (RaggedStageConfig) "
+                             "take none of: " + "; ".join(refused))
+
+    def _init_ragged(self, generator, tables) -> None:
+        """Tables of different sizes: one flat buffer `tables` [sum R, D],
+        the layout (`self.layout`) and its offsets on `device`. Drawn N(0, 1/D) in chunks of
+        rows, on the generator's device, unless `tables` are given."""
+        cfg, device = self.cfg, self.device
+        self.layout = layout = cfg.layout()
+        self.plans = None
+        self.register_buffer("_remap", None, persistent=False)
+        for name, values, dtype in (
+                ("row_offsets", layout.row_offsets(), torch.int64),
+                ("col_offsets", layout.col_offsets(), torch.int32),
+                ("table_order", layout.table_order(), torch.int32)):
+            self.register_buffer(name, torch.tensor(
+                values, dtype=dtype, device=device), persistent=False)
+        shape = (sum(layout.rows), cfg.dim)
+        if tables is not None:
+            if tuple(tables.shape) != shape or tables.dtype != cfg.torch_dtype:
+                raise ValueError(f"tables {tuple(tables.shape)} "
+                                 f"{tables.dtype} != {list(shape)} "
+                                 f"{cfg.torch_dtype}")
+            self.register_buffer("tables", tables.to(device))
+            return
+        flat = torch.empty(shape, dtype=cfg.torch_dtype, device=device)
+        if device.type != "meta":
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            for r0 in range(0, shape[0], RAGGED_DRAW_ROWS):
+                chunk = flat[r0:r0 + RAGGED_DRAW_ROWS]
+                torch.randn(chunk.shape, generator=generator,
+                            dtype=chunk.dtype, device=device, out=chunk)
+                chunk.mul_(1.0 / np.sqrt(cfg.dim))
+        self.register_buffer("tables", flat)
+
     def remap_indices(self, indices: torch.Tensor) -> torch.Tensor:
         """Raw row ids -> hot-first ids. indices: [B, T, L] int32."""
         if self._remap is None:
@@ -180,6 +271,12 @@ class EmbeddingBagCollection(nn.Module):
                 pre_remapped: bool = False) -> torch.Tensor:
         """indices: [B, T, L] int32 -> pooled [B, T, D] (the TPU path's
         `apply`; `nn.Module.apply` keeps its own meaning here).
+
+        Tables of different sizes (a `RaggedStageConfig`) take indices
+        [B, sum(table_pooling)] int32 instead: table t's ids sit at columns
+        [off_t, off_t + L_t), off_t the sum of the bag sizes before it, and
+        each lies in [0, table_rows[t]); the pooled bags [B, T, D] are then
+        float32 whatever the tables' type.
 
         Thin delegation into the bound storage backend."""
         if (self.tables.requires_grad and torch.is_grad_enabled()

@@ -24,12 +24,19 @@ shared with the fused kernel):
   the resident warps. `last_launch_info` reports the registers per thread
   and the resident blocks per SM of the instantiation launched, as the
   CUDA runtime counts them.
+
+Tables of different sizes, each with its own bag length (`RaggedLayout`),
+go to a second kernel on the same core, `csrc/ragged_bag.cu`, built into
+the same library: one launch pools every table of a flat [sum R, D]
+buffer into float32 bags (`embedding_bag_ragged_cuda`). It takes sum
+pooling of unweighted bags only, with no hot operand and no backward.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -41,17 +48,18 @@ import torch
 
 from repro_torch.tracing import span
 
-#: Launches of the CUDA kernel since the count was last set to 0. Only
-#: `embedding_bag_cuda` adds to it, once per launch, through
-#: `_count_launch`: the sharded backend's shard threads launch at once, and
-#: `+=` on a module global is a read-modify-write that could lose a count.
+#: Launches of the CUDA bag kernels since the count was last set to 0.
+#: Only `embedding_bag_cuda` and `embedding_bag_ragged_cuda` add to it,
+#: once per launch, through `_count_launch`: the sharded backend's shard
+#: threads launch at once, and `+=` on a module global is a
+#: read-modify-write that could lose a count.
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 # the first launch builds and loads the library: one thread does it
 _LOAD_LOCK = threading.Lock()
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "embedding_bag.cu",)
+SOURCES = (CSRC / "embedding_bag.cu", CSRC / "ragged_bag.cu")
 HEADERS = (CSRC / "bag_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -155,7 +163,8 @@ def build_library(stem: str, sources, headers=()) -> dict:
 
 
 def build() -> dict:
-    """Compile the embedding-bag kernel library (see `build_library`)."""
+    """Compile the embedding-bag kernel library, the stacked and the
+    ragged-tables kernels (see `build_library`)."""
     return build_library("embedding_bag", SOURCES, HEADERS)
 
 
@@ -180,6 +189,12 @@ def _library():
         lib.embedding_bag_last_launch_info.restype = i32
         lib.embedding_bag_error_string.argtypes = [i32]
         lib.embedding_bag_error_string.restype = ctypes.c_char_p
+        lib.ragged_bag_launch.argtypes = [
+            ptr, ll, ptr, ptr, ptr, ptr, ptr, ll, i32, i32, i32, i32, i32,
+            i32, ptr]
+        lib.ragged_bag_launch.restype = i32
+        lib.ragged_bag_last_launch_info.argtypes = [ptr]
+        lib.ragged_bag_last_launch_info.restype = i32
         _lib = lib
         return _lib
 
@@ -206,6 +221,13 @@ def last_launch_info() -> dict:
     geometry of the embedding-bag instantiation launched last."""
     lib = _library()
     return launch_info(lib.embedding_bag_last_launch_info,
+                       lib.embedding_bag_error_string)
+
+
+def ragged_last_launch_info() -> dict:
+    """`last_launch_info` of the ragged-tables kernel."""
+    lib = _library()
+    return launch_info(lib.ragged_bag_last_launch_info,
                        lib.embedding_bag_error_string)
 
 
@@ -274,6 +296,119 @@ def embedding_bag_cuda(tables: torch.Tensor, indices: torch.Tensor,
                 opts.batch_block, opts.prefetch_distance, stream)
         if err:
             raise RuntimeError("embedding_bag kernel launch failed: "
+                               + lib.embedding_bag_error_string(err).decode())
+        _count_launch()
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class RaggedLayout:
+    """Tables of different sizes, each with its own bag length.
+
+    The tables are one flat buffer [sum(rows), D]: table t's rows are
+    [row_offsets[t], row_offsets[t + 1]). A sample's ids are one row of
+    indices [B, sum(pooling)]: table t's at columns [col_offsets[t],
+    col_offsets[t + 1]), each in [0, rows[t])."""
+
+    rows: tuple[int, ...]
+    pooling: tuple[int, ...]
+
+    def __post_init__(self):
+        if not self.rows or len(self.rows) != len(self.pooling):
+            raise ValueError(f"{len(self.rows)} table sizes and "
+                             f"{len(self.pooling)} bag sizes: give one of "
+                             f"each for every table")
+        if min(self.rows) < 1 or min(self.pooling) < 1:
+            raise ValueError(f"table sizes {self.rows} and bag sizes "
+                             f"{self.pooling} must be positive")
+        if max(self.rows) > 2**31 - 1:
+            raise ValueError("a table's ids are int32: at most 2**31 - 1 "
+                             "rows a table")
+
+    @property
+    def num_tables(self) -> int:
+        return len(self.rows)
+
+    @property
+    def cols(self) -> int:
+        """Ids a sample: the indices' second dimension."""
+        return sum(self.pooling)
+
+    def row_offsets(self) -> list[int]:
+        return [0, *itertools.accumulate(self.rows)]
+
+    def col_offsets(self) -> list[int]:
+        return [0, *itertools.accumulate(self.pooling)]
+
+    def table_order(self) -> list[int]:
+        """The tables by bag length, longest first (ties in table order):
+        the order in which the kernel's grid rows pool them."""
+        return sorted(range(self.num_tables), key=lambda t: -self.pooling[t])
+
+
+def embedding_bag_ragged_cuda(tables: torch.Tensor, indices: torch.Tensor,
+                              row_offsets: torch.Tensor,
+                              col_offsets: torch.Tensor,
+                              table_order: torch.Tensor,
+                              opts: LaunchGeometry = LaunchGeometry()
+                              ) -> torch.Tensor:
+    """Sum-pooled bags of tables of different sizes in one launch of the
+    CUDA kernel `csrc/ragged_bag.cu` (layout: `RaggedLayout`).
+
+    tables:      [sum R, D] float32 or bfloat16 on a CUDA device, rows
+                 contiguous
+    indices:     [B, C] int32, contiguous: table t's ids at columns
+                 [col_offsets[t], col_offsets[t + 1]), each in [0, R_t)
+    row_offsets: [T + 1] int64, col_offsets [T + 1] int32, table_order [T]
+                 int32, on the tables' device (`RaggedLayout`'s lists)
+    returns:     [B, T, D] float32
+    """
+    with span("embedding_bag.ragged_launch"):
+        opts.validate()
+        if not tables.is_cuda:
+            raise ValueError("embedding_bag_ragged_cuda needs tables on a "
+                             "CUDA device; CPU tensors go to "
+                             "ref.ragged_tables_bag_ref")
+        if tables.dim() != 2 or tables.dtype not in _DTYPE_CODES \
+                or tables.stride(1) != 1:
+            raise ValueError(f"tables must be [N, D] float32/bfloat16 with "
+                             f"contiguous rows, got {tuple(tables.shape)} "
+                             f"{tables.dtype} strides {tables.stride()}")
+        num_tables = table_order.shape[0]
+        for name, t, dtype, n in (("row_offsets", row_offsets, torch.int64,
+                                   num_tables + 1),
+                                  ("col_offsets", col_offsets, torch.int32,
+                                   num_tables + 1),
+                                  ("table_order", table_order, torch.int32,
+                                   num_tables)):
+            if (t.shape != (n,) or t.dtype != dtype
+                    or not t.is_contiguous() or t.device != tables.device):
+                raise ValueError(f"{name} must be contiguous {dtype} [{n}] "
+                                 f"on {tables.device}, got "
+                                 f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if (indices.dim() != 2 or indices.dtype != torch.int32
+                or not indices.is_contiguous()
+                or indices.device != tables.device):
+            raise ValueError(f"indices must be contiguous int32 [B, C] on "
+                             f"{tables.device}, got {tuple(indices.shape)} "
+                             f"{indices.dtype} on {indices.device}")
+        batch, cols = indices.shape
+        dim = tables.shape[1]
+        out = torch.empty((batch, num_tables, dim), dtype=torch.float32,
+                          device=tables.device)
+        if out.numel() == 0:
+            return out
+        lib = _library()
+        with torch.cuda.device(tables.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.ragged_bag_launch(
+                tables.data_ptr(), tables.stride(0), row_offsets.data_ptr(),
+                col_offsets.data_ptr(), table_order.data_ptr(),
+                indices.data_ptr(), out.data_ptr(), batch, num_tables, cols,
+                dim, _DTYPE_CODES[tables.dtype], opts.batch_block,
+                opts.prefetch_distance, stream)
+        if err:
+            raise RuntimeError("ragged_bag kernel launch failed: "
                                + lib.embedding_bag_error_string(err).decode())
         _count_launch()
         return out

@@ -64,6 +64,25 @@ def embedding_bag_ragged_ref(table: torch.Tensor, flat_indices: torch.Tensor,
     return out
 
 
+def ragged_tables_bag_ref(tables: torch.Tensor, indices: torch.Tensor,
+                          row_offsets, col_offsets) -> torch.Tensor:
+    """Sum-pooled bags of tables of different sizes, one table at a time
+    (`kernel.RaggedLayout`'s layout), with the ragged kernel's semantics:
+    rows widened to float32, then summed in lookup order.
+
+    tables:      [sum R, D] float
+    indices:     [B, C] int: table t's ids at columns
+                 [col_offsets[t], col_offsets[t + 1]), each in [0, R_t)
+    row_offsets, col_offsets: sequences of T + 1 ints
+    returns:     [B, T, D] float32
+    """
+    pooled = []
+    for t in range(len(row_offsets) - 1):
+        ids = indices[:, col_offsets[t]:col_offsets[t + 1]].long()
+        pooled.append(tables[ids + row_offsets[t]].float().sum(dim=1))
+    return torch.stack(pooled, dim=1)
+
+
 def embedding_lookup_ref(table: torch.Tensor,
                          token_ids: torch.Tensor) -> torch.Tensor:
     """Plain gather (pooling=1 degenerate bag) — LM vocab embedding."""

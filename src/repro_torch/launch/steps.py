@@ -306,6 +306,11 @@ def _dlrm_named(model) -> dict[str, torch.Tensor]:
 
 def _dlrm_setup(dlrm_cfg, mesh, batch: int, model, device, *, train: bool):
     from repro_torch.models.dlrm import DLRM
+    if dlrm_cfg.embedding.ragged or dlrm_cfg.interaction == "dcn":
+        raise ValueError("the DLRM steps shard stacked tables table-wise "
+                         "and the dot or cat interaction: not tables of "
+                         "different sizes (RaggedStageConfig), nor the dcn "
+                         "cross network")
     model = model if model is not None else DLRM(dlrm_cfg, device=device)
     pspecs = param_specs(_dlrm_named(model), mesh)
     distribute_params(model, mesh, pspecs)

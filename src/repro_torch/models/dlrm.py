@@ -1,7 +1,8 @@
 """DLRM (Naumov et al.) — the paper's model (§II-A, Fig. 2; config from §V).
 
 Stages: Bottom MLP (continuous features) | Embedding stage (categorical) |
-Feature interaction (pairwise dot product) | Top MLP -> CTR logit.
+Feature interaction (pairwise dot product, concatenation, or DCN V2's
+low-rank cross network) | Top MLP -> CTR logit.
 
 The embedding stage is an EmbeddingBagCollection (core/embedding.py) — the
 paper's technique (the prefetching CUDA embedding-bag kernel) plugs in
@@ -19,7 +20,7 @@ from torch import nn
 from repro_torch.core.embedding import EmbeddingBagCollection, EmbeddingStageConfig
 from repro_torch.kernels.interaction import dot_interaction
 from repro_torch.models import pspec
-from repro_torch.models.layers import MLPTower
+from repro_torch.models.layers import LowRankCrossNet, MLPTower
 from repro_torch.models.pspec import P
 from repro_torch.tracing import span
 from repro_torch.utils import resolve_device, shard_map_compat, torch_dtype
@@ -32,8 +33,12 @@ class DLRMConfig:
     bottom_mlp: tuple[int, ...] = (1024, 512, 128, 128)
     top_mlp: tuple[int, ...] = (128, 64, 1)
     embedding: EmbeddingStageConfig = EmbeddingStageConfig()
-    interaction: str = "dot"      # dot | cat
+    interaction: str = "dot"      # dot | cat | dcn
     dtype: str = "float32"
+    # the "dcn" interaction: a low-rank cross network (DCN V2) over the
+    # concatenated features, of this many layers and this rank
+    dcn_layers: int = 3
+    dcn_rank: int = 512
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -43,7 +48,7 @@ class DLRMConfig:
         t = self.embedding.num_tables + 1      # +1: bottom MLP output
         if self.interaction == "dot":
             return self.bottom_mlp[-1] + t * (t - 1) // 2
-        return self.bottom_mlp[-1] * t
+        return self.bottom_mlp[-1] * t     # cat, and dcn's cross width
 
 
 class DLRM(nn.Module):
@@ -51,7 +56,8 @@ class DLRM(nn.Module):
     from a `torch.Generator`; `repro_torch.convert.load_reference_params`
     loads the TPU path's weights instead, and `tables=` hands the
     embedding collection existing tables; `device="meta"` builds the
-    shapes alone. Submodules: `bottom`, `ebc`, `top`."""
+    shapes alone. Submodules: `bottom`, `ebc`, `top`, and `cross` (the
+    `LowRankCrossNet`) when `cfg.interaction` is "dcn"."""
 
     def __init__(self, cfg: DLRMConfig, plans=None, *, device="cuda",
                  seed: int = 0, tables: torch.Tensor | None = None):
@@ -59,6 +65,9 @@ class DLRM(nn.Module):
         if cfg.bottom_mlp[-1] != cfg.embedding.dim:
             raise ValueError("bottom MLP output must match embedding dim "
                              "for dot interaction")
+        if cfg.interaction not in ("dot", "cat", "dcn"):
+            raise ValueError(f"unknown interaction {cfg.interaction!r}: "
+                             f"dot, cat or dcn")
         self.cfg = cfg
         device = resolve_device(device)
         gen = (None if device.type == "meta"      # shapes only
@@ -71,6 +80,10 @@ class DLRM(nn.Module):
                                           tables=tables)
         self.top = MLPTower((cfg.interaction_dim(), *cfg.top_mlp), dt,
                             generator=gen, device=device)
+        if cfg.interaction == "dcn":
+            self.cross = LowRankCrossNet(cfg.interaction_dim(),
+                                         cfg.dcn_layers, cfg.dcn_rank, dt,
+                                         generator=gen, device=device)
 
     @property
     def device(self) -> torch.device:
@@ -79,12 +92,14 @@ class DLRM(nn.Module):
         return self.ebc.device
 
     def _interact(self, bottom_out: torch.Tensor, pooled: torch.Tensor):
-        """bottom_out: [B, D]; pooled: [B, T, D] -> interaction features.
-        On DTensors each rank interacts its own rows (a `shard_map_compat`
-        region over bottom_out's batch shards): the pair gather's backward
-        (an index_put over two index tensors) has no DTensor sharding rule
-        in every torch release, and the interaction kernel takes plain
-        tensors."""
+        """bottom_out: [B, D]; pooled: [B, T, D] -> interaction features:
+        the dot interaction's pairs, the concatenation [B, (T+1)·D]
+        ("cat"), or the cross network over it ("dcn", under the span
+        `dlrm.cross`). On DTensors each rank interacts its own rows (a
+        `shard_map_compat` region over bottom_out's batch shards): the
+        interaction kernel takes plain contiguous tensors (and the plain
+        version's pair gather, on the CPU, has a backward with no DTensor
+        sharding rule in every torch release)."""
         if pspec.is_dtensor(bottom_out):
             b_ax = pspec.spec_of(bottom_out)[0]
 
@@ -100,11 +115,20 @@ class DLRM(nn.Module):
                 # [B, D + C(T+1, 2)], pairs row-major as jnp.triu_indices
                 return dot_interaction(bottom_out, pooled)
             feats = torch.cat([bottom_out[:, None, :], pooled], dim=1)
-            return feats.reshape(feats.shape[0], -1)
+            feats = feats.reshape(feats.shape[0], -1)
+            if self.cfg.interaction == "cat":
+                return feats
+            with span("dlrm.cross"):
+                return self.cross(feats)
 
     def forward(self, dense: torch.Tensor, sparse_indices: torch.Tensor,
                 sparse_weights: torch.Tensor | None = None) -> torch.Tensor:
-        """dense: [B, F]; sparse_indices: [B, T, L] -> CTR logits [B]."""
+        """dense: [B, F]; sparse_indices: [B, T, L] -> CTR logits [B].
+
+        With tables of different sizes (a `RaggedStageConfig`),
+        sparse_indices is [B, sum(table_pooling)] int32: table t's ids sit
+        at columns [off_t, off_t + L_t), off_t the sum of the bag sizes
+        before it, and each lies in [0, table_rows[t])."""
         with span("dlrm.forward"):
             pooled = self.ebc(sparse_indices, sparse_weights)
             return self.forward_from_pooled(dense, pooled)

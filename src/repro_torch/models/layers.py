@@ -1,5 +1,5 @@
 """Primitive layers: the init helper, the parameter tree, norms, the
-feed-forward variants, RoPE, and the DLRM's MLP tower.
+feed-forward variants, RoPE, and the DLRM's MLP tower and cross network.
 
 Weights keep the TPU path's [in, out] layout and compute `x @ w + b`, so a
 parameter tree from the JAX package loads as it is (`repro_torch.convert`).
@@ -153,4 +153,42 @@ class MLPTower(nn.Module):
                  + pspec.replicate(getattr(self, f"b{i}")))
             if i < self.num_layers - 1 or final_act:
                 x = torch.relu(x)
+        return x
+
+
+class LowRankCrossNet(nn.Module):
+    """DCN V2's cross network in its low-rank form (Wang et al.,
+    arXiv:2008.13535; TorchRec's `LowRankCrossNet`): `layers` layers over
+    x0 [B, dim], each
+
+        x_{l+1} = x0 * ((x_l @ v_l) @ w_l + b_l) + x_l
+
+    with parameters v{l} [dim, rank], w{l} [rank, dim] and b{l} [dim].
+    Initialised as TorchRec does: v and w Xavier-normal, b zero. The
+    products are cuBLAS's; the bias rides in the second product
+    (`addmm`) and the cross term is one `addcmul`."""
+
+    def __init__(self, dim: int, layers: int, rank: int, dtype: torch.dtype,
+                 *, generator: torch.Generator | None, device):
+        super().__init__()
+        if layers < 1 or rank < 1:
+            raise ValueError(f"a cross network needs layers >= 1 and "
+                             f"rank >= 1, got {layers} and {rank}")
+        self.num_layers = layers
+        meta = torch.device(device).type == "meta"
+        for i in range(layers):
+            for name, shape in ((f"v{i}", (dim, rank)), (f"w{i}", (rank, dim))):
+                w = torch.empty(shape, dtype=torch.float32, device=device)
+                if not meta:
+                    nn.init.xavier_normal_(w, generator=generator)
+                self.register_parameter(name, nn.Parameter(w.to(dtype)))
+            self.register_parameter(f"b{i}", nn.Parameter(torch.zeros(
+                dim, dtype=dtype, device=device)))
+
+    def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        x = x0
+        for i in range(self.num_layers):
+            y = torch.addmm(getattr(self, f"b{i}"),
+                            x @ getattr(self, f"v{i}"), getattr(self, f"w{i}"))
+            x = torch.addcmul(x, x0, y)
         return x

@@ -10,6 +10,12 @@ gradient (training) get one from its backward; a lookup that asks for no
 gradient launches the same kernel with the same bits. On the CPU autograd
 differentiates the plain gather itself.
 
+Tables of different sizes (a `RaggedStageConfig`) are one
+flat [sum R, D] buffer, looked up by `_lookup_ragged`: one launch of the
+ragged bag kernel on the card, the plain per-table gather on the CPU. It
+takes unweighted sum bags only, and no online update, hot-row remap or
+table-wise sharding.
+
 No staging, no refresh: with everything resident there is nothing to
 overlap or re-pin at the storage level (the paper's in-kernel prefetch and
 hot-row operand live inside the kernel itself, selected by
@@ -27,7 +33,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.update import UpdateTxn, require_open
-from repro_torch.kernels.embedding_bag import EmbeddingBagFunction
+from repro_torch.kernels.embedding_bag import (EmbeddingBagFunction,
+                                               embedding_bag_ragged_cuda,
+                                               ragged_tables_bag_ref)
 from repro_torch.models import pspec
 from repro_torch.models.pspec import P
 from repro_torch.storage.base import EmbeddingStorage, StorageCapabilities
@@ -59,13 +67,17 @@ class DeviceStorage(EmbeddingStorage):
         self._update_txn = None
 
     def capabilities(self) -> StorageCapabilities:
-        return StorageCapabilities(device_resident=True, updatable=True)
+        return StorageCapabilities(device_resident=True,
+                                   updatable=not self.cfg.ragged)
 
     # -- online model updates -------------------------------------------------
     def version(self) -> int:
         return self._version
 
     def begin_update(self, version: int) -> bool:
+        if not self.capabilities().updatable:
+            raise ValueError("tables of different sizes take no online "
+                             "updates")
         if self._update_txn is not None:
             raise RuntimeError(
                 f"an update to v{self._update_txn.version} is already "
@@ -109,7 +121,10 @@ class DeviceStorage(EmbeddingStorage):
 
     def lookup(self, indices: torch.Tensor, weights=None, *,
                pre_remapped: bool = False) -> torch.Tensor:
-        """indices: [B, T, L] int32 -> pooled [B, T, D]."""
+        """indices: [B, T, L] int32 -> pooled [B, T, D] (tables of
+        different sizes: `_lookup_ragged`)."""
+        if self.cfg.ragged:
+            return self._lookup_ragged(indices, weights)
         if not pre_remapped:
             indices = self.ebc.remap_indices(indices)
         tables = self.ebc.tables                       # [T(+pad), R, D]
@@ -130,6 +145,34 @@ class DeviceStorage(EmbeddingStorage):
             None if weights is None
             else weights.to(torch.float32).contiguous(),
             self.cfg.kernel_opts())
+
+    def _lookup_ragged(self, indices, weights):
+        """Tables of different sizes: indices [B, sum L_t] int32 -> pooled
+        [B, T, D] float32; the ragged kernel on the card (one launch), the
+        plain gather and pooling one table at a time on the CPU."""
+        ebc = self.ebc
+        layout = ebc.layout
+        tables = ebc.tables
+        if weights is not None:
+            raise ValueError("tables of different sizes take unweighted "
+                             "bags only")
+        if pspec.is_dtensor(tables):
+            raise ValueError("tables of different sizes cannot be sharded "
+                             "table-wise")
+        if indices.dim() != 2 or indices.shape[1] != layout.cols:
+            raise ValueError(f"indices must be [B, {layout.cols}] (the bag "
+                             f"sizes {layout.pooling} side by side), got "
+                             f"{tuple(indices.shape)}")
+        if not tables.is_cuda:
+            return ragged_tables_bag_ref(tables, indices,
+                                         layout.row_offsets(),
+                                         layout.col_offsets())
+        if tables.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError("the ragged bag kernel has no backward: look "
+                               "up under torch.no_grad()")
+        return embedding_bag_ragged_cuda(
+            tables, indices.to(torch.int32).contiguous(), ebc.row_offsets,
+            ebc.col_offsets, ebc.table_order, self.cfg.kernel_opts())
 
     def _lookup_tablewise(self, tables, indices, weights):
         """The lookup on a table-wise sharded DTensor: `_lookup_local` on

@@ -20,8 +20,16 @@ Spans, and what each is for:
                                          (bag_roofline), and the host work
                                          before each bag kernel
     repro_torch.dlrm.bottom              the bottom MLP tower: mlp_ms
+    repro_torch.embedding_bag.ragged_launch
+                                         kernel.embedding_bag_ragged_cuda,
+                                         its checks to the launch: the
+                                         ragged bag kernel's time (tables of
+                                         different sizes: dcn_bag_roofline)
     repro_torch.dlrm.interact            DLRM._interact, the dot interaction:
                                          interact_ms
+    repro_torch.dlrm.cross               the cross network inside
+                                         DLRM._interact (interaction "dcn"):
+                                         dcn_cross_ms, dcn_cross_roofline
     repro_torch.dlrm.top                 the top MLP tower: mlp_ms
 """
 from __future__ import annotations
