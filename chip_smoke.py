@@ -78,6 +78,16 @@ and the script exits non-zero:
                   launch, the pooled bags against the plain version at
                   the same bound, the kernel's time, the plain version's
                   and F.embedding_bag's beside the byte bound
+  4d. towers      the MLP towers of the benchmark's five cells (B = 2048,
+                  16,384 and 8,192) under inference_mode: the fused
+                  forward (bias and ReLU in each product's epilogue)
+                  against `x @ w + b` then relu, whole and layer by layer:
+                  device ms, the kernels each launches (no elementwise
+                  kernel in a fused layer but an N = 1 one), the gap
+                  over the composed output's largest entry, and
+                  `MLPTower.epilogue_layers` one a layer where
+                  `epilogue_pays` (all but dlrm-production's first top
+                  layer)
   5. serve        dlrm_production at full width through ServingSession on
                   the `device` backend: 3 batches of 2048 med_hot queries;
                   the bag and interaction kernels launch once per forward;
@@ -194,7 +204,8 @@ and the script exits non-zero:
 
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
 `--stop-after PHASE` ends the run after that phase (build, lm_zoo,
-lm_serve, spmd_lm_train, parity_fused, interaction, ragged, kernel_time,
+lm_serve, spmd_lm_train, parity_fused, interaction, ragged, towers,
+kernel_time,
 kernel_diag,
 replay_device, replay_tiered, quickstart, spmd_dlrm, spmd_dryrun,
 serve_sharded, serve_pool, replay_tenants; a short first call for a new
@@ -250,6 +261,7 @@ from repro_torch.launch.steps import (distribute_inputs,  # noqa: E402
                                       make_lm_train_step)
 from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models.dlrm import bce_with_logits  # noqa: E402
+from repro_torch.models.layers import MLPTower, epilogue_pays  # noqa: E402
 from repro_torch.optim import (adamw_lowmem_init,  # noqa: E402
                                adamw_lowmem_update, rowwise_adagrad_update,
                                sgdm_update)
@@ -915,6 +927,23 @@ RAGGED_CASES = (
 )
 RAGGED_STACKED = (6, 5000, 20, 128, 257)   # T, R, L, D, B: equal tables
 RAGGED_BATCH = 8192                        # the benchmark cell's batch
+# towers: the benchmark's five cells' MLP towers (name, batch, widths,
+# final ReLU): dlrm-production (its three cells), dlrm-benchmark
+# (bench/configs/dlrm-benchmark.json: 512 dense inputs, 64 + C(9, 2) =
+# 100 interaction features) and dlrm-dcnv2
+TOWER_SHAPES = (
+    ("production.bottom", 2048, (CONFIG.dense_features, *CONFIG.bottom_mlp),
+     True),
+    ("production.top", 2048, (CONFIG.interaction_dim(), *CONFIG.top_mlp),
+     False),
+    ("benchmark.bottom", 16384, (512, 512, 64), True),
+    ("benchmark.top", 16384, (100, 1024, 1024, 1024, 1), False),
+    ("dcnv2.bottom", 8192, (DCNV2.dense_features, *DCNV2.bottom_mlp), True),
+    ("dcnv2.top", 8192, (DCNV2.interaction_dim(), *DCNV2.top_mlp), False),
+)
+TOWER_ITERS = 20
+TOWER_SPIN_CYCLES = 200_000_000     # ~0.1 s at 1,980 MHz: the queue fills
+TOWER_GAP_LIMIT = 1e-4      # bench/harness/check.py's logit_gap limit
 
 
 def _interaction_inputs(batch, features, dim, dtype, seed, offset=0):
@@ -1253,6 +1282,114 @@ def _ragged_full_width(failed: list) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def queued_device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device ms a call of `fn`, its launches queued behind a spin kernel
+    (`torch.cuda._sleep`) so the device runs them back to back: a host
+    slower than the kernels (a busy CPU, a heuristic query a call) is not
+    timed, unlike `cuda_ms`."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(TOWER_SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_kernels(fn, reps: int = 3) -> list:
+    """The names of the device kernels a call of `fn` launches, in order
+    of first launch (torch.profiler over `reps` calls; a name launched
+    fewer than `reps` times is another call's, flushed late), or the
+    profiler's error."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except Exception as exc:    # the profiler is untried on that machine
+        return [f"profiler failed: {exc!r}"]
+    names = collections.Counter(ev.name for ev in prof.events()
+                                if "cuda" in str(ev.device_type).lower())
+    return [name for name, n in names.items() if n >= reps]
+
+
+def phase_towers() -> dict:
+    """The MLP towers of the benchmark's five cells on the card, under
+    `inference_mode`: the fused forward (bias and ReLU in each product's
+    epilogue) against the composed one, whole and layer by layer: device
+    ms (`queued_device_ms`), the kernels each launches, the gap relative to the
+    composed output's largest entry, and `epilogue_layers`' count."""
+    failed: list = []
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    towers = []
+    with torch.inference_mode():
+        for name, batch, dims, final_act in TOWER_SHAPES:
+            tower = MLPTower(dims, torch.float32, generator=gen,
+                             device="cuda")
+            for i in range(tower.num_layers):      # a bias that matters
+                getattr(tower, f"b{i}").normal_(0.0, 0.05, generator=gen)
+            x = torch.randn((batch, dims[0]), generator=gen, device="cuda")
+            ws = [getattr(tower, f"w{i}") for i in range(tower.num_layers)]
+            bs = [getattr(tower, f"b{i}") for i in range(tower.num_layers)]
+            fused_fn = lambda: tower(x, final_act=final_act)  # noqa: E731
+            composed_fn = lambda: tower.run_layers(  # noqa: E731
+                x, ws, bs, final_act, fuse=False)
+            tower.epilogue_layers = 0
+            got = fused_fn()
+            counted = tower.epilogue_layers
+            want = composed_fn()
+            gap = ((got - want).abs().max() / want.abs().max()).item()
+            layers = []
+            h = x
+            for i, (w, b) in enumerate(zip(ws, bs)):
+                relu = i < tower.num_layers - 1 or final_act
+                op = torch._addmm_activation if relu else torch.addmm
+                one = lambda: op(b, h, w)  # noqa: E731
+                two = lambda: (torch.relu(h @ w + b) if relu  # noqa: E731
+                               else h @ w + b)
+                kernels = _device_kernels(one)
+                layers.append({
+                    "m_k_n": [batch, w.shape[0], w.shape[1]], "relu": relu,
+                    "fused_ms": queued_device_ms(one, TOWER_ITERS),
+                    "composed_ms": queued_device_ms(two, TOWER_ITERS),
+                    "fused_kernels": kernels,
+                    "composed_kernels": _device_kernels(two)})
+                extra = [k for k in kernels if "elementwise" in k]
+                expect(failed, not extra or w.shape[1] == 1,
+                       f"{name} layer {i}: the fused call launched {extra}")
+                h = one()
+            out = {"name": name, "batch": batch, "dims": list(dims),
+                   "final_act": final_act,
+                   "fused_ms": queued_device_ms(fused_fn, TOWER_ITERS),
+                   "composed_ms": queued_device_ms(composed_fn,
+                                                   TOWER_ITERS),
+                   "gap": gap, "epilogue_layers": counted,
+                   "fused_kernels": _device_kernels(fused_fn),
+                   "layers": layers}
+            out["speedup"] = out["composed_ms"] / out["fused_ms"]
+            pays = sum(epilogue_pays(*w.shape) for w in ws)
+            expect(failed, counted == pays,
+                   f"{name}: {counted} layers through the epilogue, "
+                   f"{pays} wanted")
+            expect(failed, gap <= TOWER_GAP_LIMIT,
+                   f"{name}: fused against composed {gap:.3e}")
+            towers.append(out)
+            del tower, x, ws, bs, got, want, h
+    torch.cuda.empty_cache()
+    return {"towers": towers,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "failed": failed}
 
 
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -4329,6 +4466,14 @@ def main() -> int:
     emit("ragged", **ragged, seconds=time.perf_counter() - t0)
     check(not ragged["failed"], f"ragged: {ragged['failed']}")
     if stop("ragged"):
+        return 0
+
+    # 4d. towers: the MLP towers' fused epilogue against the composed form
+    t0 = time.perf_counter()
+    towers = phase_towers()
+    emit("towers", **towers, seconds=time.perf_counter() - t0)
+    check(not towers["failed"], f"towers: {towers['failed']}")
+    if stop("towers"):
         return 0
 
     # 5. serve

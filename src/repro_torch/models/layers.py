@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import pspec
+from repro_torch.utils import shard_map_compat
 
 
 def dense_init(shape, dtype: torch.dtype, *, generator: torch.Generator,
@@ -129,13 +130,50 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def tower_path(device_type: str, records_graph: bool, dtensor: bool) -> str:
+    """How `MLPTower` runs its layers, from what it can observe:
+
+    - "composed": `x @ w + b`, then `torch.relu`: on the CPU (the JAX
+      package's arithmetic, which the parity tests hold the port to) and
+      wherever autograd records a graph (`torch._addmm_activation` has no
+      derivative);
+    - "fused": on CUDA with no graph, each layer one product whose
+      epilogue adds the bias and, where a ReLU follows, takes max(·, 0)
+      (`torch._addmm_activation` / `torch.addmm`: cuBLASLt's RELU_BIAS and
+      BIAS epilogues), so its output is written once;
+    - "fused_local": the same on each rank's rows of a DTensor."""
+    if device_type != "cuda" or records_graph:
+        return "composed"
+    return "fused_local" if dtensor else "fused"
+
+
+def epilogue_pays(k: int, n: int) -> bool:
+    """Whether a fused layer [*, k] @ [k, n] runs faster than `mm`, add and
+    ReLU. On an H100 it does at every tower shape of the benchmark's cells
+    but one: where the contraction is 32 or more times the width
+    (K >= 32·N), cuBLASLt's epilogue kernel took 1.1-1.3 times as long as
+    cuBLAS's plain product, more than the two passes it saves. At N = 128
+    the fused call lost from K = 4,096 up; at N = 1,024 it won up to
+    K = 31,504 (M = 2,048 and 8,192; PERF.md §6). An N = 1 layer
+    never reaches cuBLASLt: `torch.addmm` copies the bias into the output
+    and the gemv adds onto it, no slower than gemv then add. Of the cells'
+    layers only dlrm-production's first top layer (31,503 -> 128) keeps
+    the composition."""
+    return n == 1 or k < 32 * n
+
+
 class MLPTower(nn.Module):
-    """Plain MLP tower (DLRM bottom/top): parameters w{i} [in, out], b{i}."""
+    """Plain MLP tower (DLRM bottom/top): parameters w{i} [in, out], b{i}.
+
+    `epilogue_layers` counts the layers run through the fused call
+    (`tower_path`, `epilogue_pays`), as the kernels count their launches;
+    set it to 0 to restart the count."""
 
     def __init__(self, dims: tuple[int, ...], dtype: torch.dtype, *,
                  generator: torch.Generator, device):
         super().__init__()
         self.num_layers = len(dims) - 1
+        self.epilogue_layers = 0
         for i in range(self.num_layers):
             self.register_parameter(f"w{i}", nn.Parameter(dense_init(
                 (dims[i], dims[i + 1]), dtype, generator=generator,
@@ -145,13 +183,42 @@ class MLPTower(nn.Module):
                 dims[i + 1], dtype=dtype, device=device)))
 
     def forward(self, x: torch.Tensor, *, final_act: bool = False):
+        graph = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        path = tower_path(x.device.type, graph, pspec.is_dtensor(x))
+        ws = tuple(getattr(self, f"w{i}") for i in range(self.num_layers))
+        bs = tuple(getattr(self, f"b{i}") for i in range(self.num_layers))
+        if path != "fused_local":
+            return self.run_layers(x, ws, bs, final_act,
+                                   fuse=path == "fused")
+        # each rank's rows through the one fused call, as on one device;
+        # the specs P() gather sharded weights whole
+        rows = pspec.P(pspec.spec_of(x)[0], None)
+
+        @shard_map_compat(mesh=x.device_mesh,
+                          in_specs=(rows, pspec.P(), pspec.P()),
+                          out_specs=rows)
+        def local(x_l, ws_l, bs_l):
+            return self.run_layers(x_l, ws_l, bs_l, final_act, fuse=True)
+
+        return local(x, ws, bs)
+
+    def run_layers(self, x, ws, bs, final_act: bool, *, fuse: bool):
+        """The layers over weights `ws` and biases `bs`: with `fuse`, each
+        one product with its bias and ReLU in the epilogue where that
+        pays (`epilogue_pays`), else `x @ w + b` then `torch.relu`."""
         for i in range(self.num_layers):
+            relu = i < self.num_layers - 1 or final_act
+            if fuse and epilogue_pays(*ws[i].shape):
+                x = (torch._addmm_activation(bs[i], x, ws[i]) if relu
+                     else torch.addmm(bs[i], x, ws[i]))
+                self.epilogue_layers += 1
+                continue
             # sharded (FSDP) weights are gathered whole at use, as ZeRO-3
             # does: a product over a sharded contraction dim would sum in
             # another order than one device's
-            x = (x @ pspec.replicate(getattr(self, f"w{i}"))
-                 + pspec.replicate(getattr(self, f"b{i}")))
-            if i < self.num_layers - 1 or final_act:
+            x = x @ pspec.replicate(ws[i]) + pspec.replicate(bs[i])
+            if relu:
                 x = torch.relu(x)
         return x
 

@@ -137,6 +137,33 @@ def dlrm_serve_rank(rank: int, store: str, data: str, out: str):
     dist.destroy_process_group()
 
 
+def dlrm_serve_fused_rank(rank: int, store: str, data: str, out: str):
+    """`dlrm_serve_rank` with the towers' path rule taking the CPU for
+    CUDA (`tower_path`'s "fused_local" on DTensors); rank 0 writes the
+    logits and each tower's `epilogue_layers`."""
+    from repro_torch.models import layers
+    rule = layers.tower_path
+    layers.tower_path = lambda device, graph, dtensor: rule(
+        "cuda", graph, dtensor)
+    gloo(rank, 4, store)
+    arrs = dict(np.load(data))
+    cfg = DLRMConfig(embedding=EmbeddingStageConfig(**DLRM_STAGE),
+                     **DLRM_MLP)
+    model = DLRM(cfg, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in arrs.items()
+                           if k not in ("dense", "indices")})
+    mesh = make_debug_mesh((2, 2), device_type="cpu")
+    b = make_dlrm_serve_step(cfg, mesh, batch=DLRM_BATCH, model=model)
+    batch = distribute_inputs(
+        {k: torch.from_numpy(arrs[k]) for k in ("dense", "indices")},
+        b.in_shardings[1], mesh)
+    logits = b.fn(model, batch).full_tensor().numpy()
+    if rank == 0:
+        np.savez(out, logits=logits, counts=np.array(
+            [model.bottom.epilogue_layers, model.top.epilogue_layers]))
+    dist.destroy_process_group()
+
+
 def lm_serve_rank(rank: int, arch: str, store: str, data: str, out: str):
     """Prefill a [4, 8] prompt into a 16-long cache, then one decode step,
     through `make_lm_serve_step` on a (2, 2) mesh; rank 0 writes both
