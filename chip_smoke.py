@@ -7,9 +7,9 @@ Phases, each printing one JSON line and its seconds; any failure raises
 and the script exits non-zero:
 
   1. device       card name, power limit, TF32 off for matmul and cuDNN
-  2. build        the CUDA embedding-bag (stacked and ragged-tables),
-                  fused-lookup and dot-interaction libraries, from the
-                  sources here, one nvcc each, in parallel
+  2. build        the port's one CUDA library (the embedding-bag,
+                  ragged-tables, fused-lookup and dot-interaction kernels),
+                  from the sources here, in one nvcc call
   2b. lm_zoo      the ten LM archs at `reduced` (f32, TF32 off), each built
                   on the host from a seeded generator and its state dict
                   copied to the card: card logits against the host's
@@ -248,6 +248,7 @@ from repro_torch.core.access_patterns import (PAPER_UNIQUE_PCT,  # noqa: E402
 from repro_torch.core.embedding import _pool_rows_core, gather_rows  # noqa: E402
 from repro_torch.data import DLRMBatch  # noqa: E402
 from repro_torch.examples import quickstart, train_dlrm  # noqa: E402
+from repro_torch.kernels import library as cuda_library  # noqa: E402
 from repro_torch.kernels.embedding_bag import fused, kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.embedding_bag.grad import embedding_bag_backward  # noqa: E402
 from repro_torch.kernels.interaction import kernel as interaction  # noqa: E402
@@ -4395,20 +4396,14 @@ def main() -> int:
                  seconds=time.perf_counter() - t_all)
         return args.stop_after == phase
 
-    # 2. build: one nvcc per library, started together
+    # 2. build: every kernel's source in one nvcc call
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
-        infos = list(ex.map(lambda build: build(),
-                            (kernel.build, fused.build, interaction.build)))
-    libs = {}
-    for lib, info in zip(("embedding_bag", "fused_lookup",
-                          "dot_interaction"), infos):
-        libs[lib] = {
-            "path": os.path.relpath(info["path"], ROOT),
-            "nvcc_seconds": info["seconds"], "cached": info["cached"],
-            "ptxas": [ln.strip() for ln in info["log"].splitlines()
-                      if "registers" in ln or "spill" in ln]}
-    emit("build", libraries=libs, seconds=time.perf_counter() - t0)
+    info = cuda_library.build()
+    emit("build", path=os.path.relpath(info["path"], ROOT),
+         nvcc_seconds=info["seconds"], cached=info["cached"],
+         ptxas=[ln.strip() for ln in info["log"].splitlines()
+                if "registers" in ln or "spill" in ln],
+         seconds=time.perf_counter() - t0)
     if stop("build"):
         return 0
 

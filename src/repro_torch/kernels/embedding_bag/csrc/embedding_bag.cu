@@ -40,7 +40,7 @@
 // fill does. Every table offset is 64-bit: T*R*D reaches 1.6e10 elements at
 // the production size.
 //
-// Plain-C interface, built with nvcc into a shared library and called from
+// Plain-C interface, built into the port's one shared library and called from
 // Python through ctypes (kernel.py). The launch goes on the caller's stream,
 // does not synchronise and allocates nothing.
 

@@ -48,7 +48,7 @@
 // lies outside [0, R), makes its bag NaN (as embedding_bag.cu does for a bad
 // index) and is left out of the miss list.
 //
-// Plain-C interface, built with nvcc into a shared library and called from
+// Plain-C interface, built into the port's one shared library and called from
 // Python through ctypes (fused.py): one entry per kernel. The launches go on
 // the caller's stream, do not synchronise and allocate nothing.
 
@@ -359,10 +359,6 @@ int fused_lookup_lists(const int* slots, const int* rows, long long num_rows,
 // last.
 int fused_lookup_last_launch_info(int* out) {
   return bag_common::launch_info(g_last, out);
-}
-
-const char* fused_lookup_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

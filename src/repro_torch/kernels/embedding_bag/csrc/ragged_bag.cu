@@ -31,7 +31,7 @@
 // An id outside [0, R_t) is never dereferenced: it contributes NaN, as
 // the stacked kernel's do. Plain-C interface, compiled into the same
 // library as embedding_bag.cu (whose embedding_bag_error_string reads
-// this file's error codes too) and loaded with ctypes (kernel.py); the
+// this file's error codes too) and loaded with ctypes (library.py); the
 // launch goes on the caller's stream, does not synchronise and allocates
 // nothing.
 

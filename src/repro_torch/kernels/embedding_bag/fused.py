@@ -1,9 +1,9 @@
 """Fused warm-cache lookup: hit gather + pooled sum + miss list in one launch.
 
 `csrc/fused_lookup.cu` replaces the Pallas TPU kernel
-`repro/kernels/embedding_bag/fused.py::_fused_kernel`. It is built like the
-embedding-bag kernel (`kernel.build_library`: nvcc for `sm_90a` at first use,
-loaded with ctypes, no fallback) into its own library.
+`repro/kernels/embedding_bag/fused.py::_fused_kernel`. It is built, bound
+and launched through `kernels/library.py` at first use, with no fallback,
+like the embedding-bag kernel.
 
 Slot-map convention (as on the TPU path), per (bag, position):
 
@@ -32,12 +32,13 @@ tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import threading
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import library
 
 from . import kernel
 from .ops import resolve_backend
@@ -54,13 +55,6 @@ COMPLETION_OPTS = kernel.EmbeddingBagOpts()
 #: (under a lock: the sharded backend's shard threads launch at once).
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
-_LOAD_LOCK = threading.Lock()
-
-SOURCES = (kernel.CSRC / "fused_lookup.cu",)
-HEADERS = (kernel.CSRC / "bag_common.cuh",)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-_lib = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,50 +77,22 @@ class FusedLookupResult:
         return self.miss_rows.size == 0
 
 
-# -- build and bind -----------------------------------------------------------
-def build() -> dict:
-    """Compile the fused-lookup kernel library (see `kernel.build_library`)."""
-    return kernel.build_library("fused_lookup", SOURCES, HEADERS)
-
-
+# -- launch -------------------------------------------------------------------
 def _count_launch() -> None:
     global LAUNCHES
     with _COUNT_LOCK:
         LAUNCHES += 1
 
 
-def _library():
-    global _lib
-    with _LOAD_LOCK:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build()["path"])
-        ll, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        lib.fused_lookup_pool.argtypes = [
-            ptr, ll, ll, ll, ptr, ll, ll, ll, ll, ptr, ptr, ptr, ptr, ptr,
-            ptr, ll, ll, i32, i32, i32, i32, i32, i32, ptr]
-        lib.fused_lookup_pool.restype = i32
-        lib.fused_lookup_lists.argtypes = [
-            ptr, ptr, ll, ptr, ptr, ll, ptr, ptr, ptr, ll, ll, i32, i32, ptr]
-        lib.fused_lookup_lists.restype = i32
-        lib.fused_lookup_last_launch_info.argtypes = [ptr]
-        lib.fused_lookup_last_launch_info.restype = i32
-        lib.fused_lookup_error_string.argtypes = [i32]
-        lib.fused_lookup_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return _lib
-
-
 def last_launch_info() -> dict:
     """Registers per thread, resident blocks per SM, spill bytes and
     geometry of the gather-and-pool instantiation launched last."""
-    lib = _library()
-    return kernel.launch_info(lib.fused_lookup_last_launch_info,
-                              lib.fused_lookup_error_string)
+    return library.launch_info("fused_lookup_last_launch_info",
+                               kernel.LAUNCH_INFO_KEYS)
 
 
 def _check_operands(cache, slots, rows, weights, hot):
-    if cache.dim() != 3 or cache.dtype not in _DTYPE_CODES \
+    if cache.dim() != 3 or cache.dtype not in library.DTYPE_CODES \
             or cache.stride(2) != 1:
         raise ValueError(f"cache must be [T, C, D] float32/bfloat16 with "
                          f"contiguous rows, got {tuple(cache.shape)} "
@@ -182,23 +148,18 @@ def pool_tables(cache: torch.Tensor, slots: torch.Tensor,
     if pooled.numel() == 0:
         return pooled, bag_miss, bitmap
     num_hot = 0 if hot is None else hot.shape[1]
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.fused_lookup_pool(
-            cache.data_ptr(), cache.stride(0), cache.stride(1),
-            cache.shape[1],
-            None if hot is None else hot.data_ptr(),
-            0 if hot is None else hot.stride(0),
-            0 if hot is None else hot.stride(1), num_hot, num_rows,
-            slots.data_ptr(), rows.data_ptr(),
-            None if weights is None else weights.data_ptr(),
-            pooled.data_ptr(), bag_miss.data_ptr(), bitmap.data_ptr(),
-            words, batch, num_tables, pooling, dim,
-            _DTYPE_CODES[cache.dtype], opts.batch_block,
-            opts.prefetch_distance, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError("fused lookup kernel launch failed: "
-                           + lib.fused_lookup_error_string(err).decode())
+    library.launch(
+        "fused_lookup_pool", dev,
+        cache.data_ptr(), cache.stride(0), cache.stride(1), cache.shape[1],
+        None if hot is None else hot.data_ptr(),
+        0 if hot is None else hot.stride(0),
+        0 if hot is None else hot.stride(1), num_hot, num_rows,
+        slots.data_ptr(), rows.data_ptr(),
+        None if weights is None else weights.data_ptr(),
+        pooled.data_ptr(), bag_miss.data_ptr(), bitmap.data_ptr(),
+        words, batch, num_tables, pooling, dim,
+        library.DTYPE_CODES[cache.dtype], opts.batch_block,
+        opts.prefetch_distance)
     _count_launch()
     return pooled, bag_miss, bitmap
 
@@ -219,16 +180,12 @@ def list_tables(slots: torch.Tensor, rows: torch.Tensor,
     counts = torch.zeros((num_tables, 2), dtype=torch.int32, device=dev)
     if batch * num_tables == 0:
         return miss_rows, miss_pos, counts
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.fused_lookup_lists(
-            slots.data_ptr(), rows.data_ptr(), num_rows, bag_miss.data_ptr(),
-            bitmap.data_ptr(), bitmap.shape[1], miss_rows.data_ptr(),
-            miss_pos.data_ptr(), counts.data_ptr(), cap, batch, num_tables,
-            pooling, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError("miss-list kernel launch failed: "
-                           + lib.fused_lookup_error_string(err).decode())
+    library.launch(
+        "fused_lookup_lists", dev,
+        slots.data_ptr(), rows.data_ptr(), num_rows, bag_miss.data_ptr(),
+        bitmap.data_ptr(), bitmap.shape[1], miss_rows.data_ptr(),
+        miss_pos.data_ptr(), counts.data_ptr(), cap, batch, num_tables,
+        pooling)
     return miss_rows, miss_pos, counts
 
 

@@ -1,13 +1,9 @@
-"""CUDA embedding-bag kernel: build, bind and launch.
+"""CUDA embedding-bag kernel: checks and launch.
 
 `csrc/embedding_bag.cu` replaces the Pallas TPU kernel
-`repro/kernels/embedding_bag/kernel.py::_bag_kernel`. It is compiled with
-`nvcc` for `sm_90a` into a shared library with a plain C interface, at
-first use, from the sources in the checkout only, into
-`build/repro_torch_kernels/` keyed by a hash of the sources and flags, and
-loaded with `ctypes`. A missing `nvcc` or a failed build raises: there is
-no fallback to the plain version. `BUILD_DIR` lies in the checkout that
-holds `src/`, so the port runs from a checkout, not from an installed copy.
+`repro/kernels/embedding_bag/kernel.py::_bag_kernel`. It is built, bound
+and launched through `kernels/library.py`, the port's one CUDA library; a
+failed build raises: there is no fallback to the plain version.
 
 The paper's mechanisms on Hopper (the design is in `csrc/bag_common.cuh`,
 shared with the fused kernel):
@@ -26,26 +22,20 @@ shared with the fused kernel):
   CUDA runtime counts them.
 
 Tables of different sizes, each with its own bag length (`RaggedLayout`),
-go to a second kernel on the same core, `csrc/ragged_bag.cu`, built into
-the same library: one launch pools every table of a flat [sum R, D]
-buffer into float32 bags (`embedding_bag_ragged_cuda`). It takes sum
-pooling of unweighted bags only, with no hot operand and no backward.
+go to a second kernel on the same core, `csrc/ragged_bag.cu`: one launch
+pools every table of a flat [sum R, D] buffer into float32 bags
+(`embedding_bag_ragged_cuda`). It takes sum pooling of unweighted bags
+only, with no hot operand and no backward.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import hashlib
 import itertools
-import os
-import shutil
-import subprocess
 import threading
-import time
-from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import library
 from repro_torch.tracing import span
 
 #: Launches of the CUDA bag kernels since the count was last set to 0.
@@ -55,23 +45,12 @@ from repro_torch.tracing import span
 #: read-modify-write that could lose a count.
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
-# the first launch builds and loads the library: one thread does it
-_LOAD_LOCK = threading.Lock()
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "embedding_bag.cu", CSRC / "ragged_bag.cu")
-HEADERS = (CSRC / "bag_common.cuh",)
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_BATCH_BLOCK = 8        # kMaxBagsPerBlock in bag_common.cuh
 RING_DEPTHS = (2, 16)      # kMinRingDepth, kMaxRingDepth in bag_common.cuh
 ROW_PASS_BYTES = 512       # kRowPass: a row's bytes one warp pass covers
 ENTRY_BYTES = 64 * 8       # kEntries staged row addresses a warp
 WEIGHT_BYTES = 64 * 4      # kEntries staged weights a warp (weighted bags)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-_lib = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +88,7 @@ class LaunchGeometry:
         staged row addresses and, for weighted bags, the 64 staged
         weights. A row wider than 512 bytes is pooled in several passes
         over the same ring. chip_smoke.py holds this to the bytes the
-        libraries report they launched with (`last_launch_info`)."""
+        kernels report they launched with (`last_launch_info`)."""
         vec = dim * itemsize % 16 == 0
         per_warp = ((self.ring_depth() * ROW_PASS_BYTES if vec else 0)
                     + ENTRY_BYTES + (WEIGHT_BYTES if weighted else 0))
@@ -124,79 +103,10 @@ class EmbeddingBagOpts(LaunchGeometry):
     mode: str = "sum"            # 'sum' | 'mean'
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
-        "kernels are built from source and have no fallback")
-
-
-def build_library(stem: str, sources, headers=()) -> dict:
-    """Compile `sources` into `lib{stem}_{hash}.so` unless this exact
-    source (headers and flags included) is built.
-
-    Returns {'path', 'seconds', 'cached', 'log'}; `log` holds nvcc's output
-    (ptxas register and spill counts)."""
-    nvcc = _nvcc()
-    digest = hashlib.sha256()
-    for src in (*sources, *headers):
-        digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
-    if path.exists():
-        return {"path": str(path), "seconds": 0.0, "cached": True, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
-    return {"path": str(path), "seconds": seconds, "cached": False,
-            "log": proc.stdout + proc.stderr}
-
-
-def build() -> dict:
-    """Compile the embedding-bag kernel library, the stacked and the
-    ragged-tables kernels (see `build_library`)."""
-    return build_library("embedding_bag", SOURCES, HEADERS)
-
-
 def _count_launch() -> None:
     global LAUNCHES
     with _COUNT_LOCK:
         LAUNCHES += 1
-
-
-def _library():
-    global _lib
-    with _LOAD_LOCK:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build()["path"])
-        ll, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        lib.embedding_bag_launch.argtypes = [
-            ptr, ll, ll, ptr, ll, ll, ll, ll, ptr, ptr, ptr, ll,
-            i32, i32, i32, i32, i32, i32, i32, ptr]
-        lib.embedding_bag_launch.restype = i32
-        lib.embedding_bag_last_launch_info.argtypes = [ptr]
-        lib.embedding_bag_last_launch_info.restype = i32
-        lib.embedding_bag_error_string.argtypes = [i32]
-        lib.embedding_bag_error_string.restype = ctypes.c_char_p
-        lib.ragged_bag_launch.argtypes = [
-            ptr, ll, ptr, ptr, ptr, ptr, ptr, ll, i32, i32, i32, i32, i32,
-            i32, ptr]
-        lib.ragged_bag_launch.restype = i32
-        lib.ragged_bag_last_launch_info.argtypes = [ptr]
-        lib.ragged_bag_last_launch_info.restype = i32
-        _lib = lib
-        return _lib
 
 
 LAUNCH_INFO_KEYS = ("registers", "blocks_per_sm", "local_bytes",
@@ -204,31 +114,17 @@ LAUNCH_INFO_KEYS = ("registers", "blocks_per_sm", "local_bytes",
                     "dynamic_shared_bytes")   # bag_common::launch_info
 
 
-def launch_info(query, error_string) -> dict:
-    """Ask a library about the instantiation it launched last
-    (`bag_common::launch_info`: cudaFuncGetAttributes and
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    out = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
-    err = query(out)
-    if err:
-        raise RuntimeError("launch info query failed: "
-                           + error_string(err).decode())
-    return dict(zip(LAUNCH_INFO_KEYS, out))
-
-
 def last_launch_info() -> dict:
     """Registers per thread, resident blocks per SM, spill bytes and
     geometry of the embedding-bag instantiation launched last."""
-    lib = _library()
-    return launch_info(lib.embedding_bag_last_launch_info,
-                       lib.embedding_bag_error_string)
+    return library.launch_info("embedding_bag_last_launch_info",
+                               LAUNCH_INFO_KEYS)
 
 
 def ragged_last_launch_info() -> dict:
     """`last_launch_info` of the ragged-tables kernel."""
-    lib = _library()
-    return launch_info(lib.ragged_bag_last_launch_info,
-                       lib.embedding_bag_error_string)
+    return library.launch_info("ragged_bag_last_launch_info",
+                               LAUNCH_INFO_KEYS)
 
 
 def embedding_bag_cuda(tables: torch.Tensor, indices: torch.Tensor,
@@ -253,7 +149,7 @@ def embedding_bag_cuda(tables: torch.Tensor, indices: torch.Tensor,
             raise ValueError("embedding_bag_cuda needs tables on a CUDA "
                              "device; CPU tensors go to "
                              "ref.embedding_bag_ref")
-        if tables.dim() != 3 or tables.dtype not in _DTYPE_CODES \
+        if tables.dim() != 3 or tables.dtype not in library.DTYPE_CODES \
                 or tables.stride(2) != 1:
             raise ValueError(f"tables must be [T, R, D] float32/bfloat16 with "
                              f"contiguous rows, got {tuple(tables.shape)} "
@@ -283,20 +179,15 @@ def embedding_bag_cuda(tables: torch.Tensor, indices: torch.Tensor,
                           device=tables.device)
         if out.numel() == 0:
             return out
-        lib = _library()
-        with torch.cuda.device(tables.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.embedding_bag_launch(
-                tables.data_ptr(), tables.stride(0), tables.stride(1),
-                hot.data_ptr(), hot.stride(0), hot.stride(1), num_hot, rows,
-                indices.data_ptr(),
-                None if weights is None else weights.data_ptr(),
-                out.data_ptr(), batch, num_tables, pooling, dim,
-                _DTYPE_CODES[tables.dtype], int(opts.mode == "mean"),
-                opts.batch_block, opts.prefetch_distance, stream)
-        if err:
-            raise RuntimeError("embedding_bag kernel launch failed: "
-                               + lib.embedding_bag_error_string(err).decode())
+        library.launch(
+            "embedding_bag_launch", tables.device,
+            tables.data_ptr(), tables.stride(0), tables.stride(1),
+            hot.data_ptr(), hot.stride(0), hot.stride(1), num_hot, rows,
+            indices.data_ptr(),
+            None if weights is None else weights.data_ptr(),
+            out.data_ptr(), batch, num_tables, pooling, dim,
+            library.DTYPE_CODES[tables.dtype], int(opts.mode == "mean"),
+            opts.batch_block, opts.prefetch_distance)
         _count_launch()
         return out
 
@@ -369,7 +260,7 @@ def embedding_bag_ragged_cuda(tables: torch.Tensor, indices: torch.Tensor,
             raise ValueError("embedding_bag_ragged_cuda needs tables on a "
                              "CUDA device; CPU tensors go to "
                              "ref.ragged_tables_bag_ref")
-        if tables.dim() != 2 or tables.dtype not in _DTYPE_CODES \
+        if tables.dim() != 2 or tables.dtype not in library.DTYPE_CODES \
                 or tables.stride(1) != 1:
             raise ValueError(f"tables must be [N, D] float32/bfloat16 with "
                              f"contiguous rows, got {tuple(tables.shape)} "
@@ -398,17 +289,12 @@ def embedding_bag_ragged_cuda(tables: torch.Tensor, indices: torch.Tensor,
                           device=tables.device)
         if out.numel() == 0:
             return out
-        lib = _library()
-        with torch.cuda.device(tables.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.ragged_bag_launch(
-                tables.data_ptr(), tables.stride(0), row_offsets.data_ptr(),
-                col_offsets.data_ptr(), table_order.data_ptr(),
-                indices.data_ptr(), out.data_ptr(), batch, num_tables, cols,
-                dim, _DTYPE_CODES[tables.dtype], opts.batch_block,
-                opts.prefetch_distance, stream)
-        if err:
-            raise RuntimeError("ragged_bag kernel launch failed: "
-                               + lib.embedding_bag_error_string(err).decode())
+        library.launch(
+            "ragged_bag_launch", tables.device,
+            tables.data_ptr(), tables.stride(0), row_offsets.data_ptr(),
+            col_offsets.data_ptr(), table_order.data_ptr(),
+            indices.data_ptr(), out.data_ptr(), batch, num_tables, cols,
+            dim, library.DTYPE_CODES[tables.dtype], opts.batch_block,
+            opts.prefetch_distance)
         _count_launch()
         return out

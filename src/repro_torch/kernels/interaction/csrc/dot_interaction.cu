@@ -52,7 +52,7 @@
 // element by element instead of by bulk copies. x_0 is copied into z
 // unchanged.
 //
-// Plain-C interface, built with nvcc into a shared library and called from
+// Plain-C interface, built into the port's one shared library and called from
 // Python through ctypes (kernel.py). The launch goes on the caller's stream,
 // does not synchronise and allocates nothing.
 
@@ -565,10 +565,6 @@ int dot_interaction_last_launch_info(int* out) {
   out[8] = g_last.passes;
   out[9] = g_last.grid;
   return cudaSuccess;
-}
-
-const char* dot_interaction_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -10,10 +10,9 @@ bags [B, T, D]; the pairs are in `torch.triu_indices(F, F, 1)` order, as
 `csrc/dot_interaction.cu` replaces no TPU kernel (the JAX package's
 `DLRM._interact` is plain `jnp`); it replaces the plain version's four
 library calls (a cat, the Gram `bmm`, the pair gather and a cat) with one
-launch that computes only the pairs and writes z directly. It is built
-with `nvcc` for `sm_90a` into a ctypes library by the bag kernel's
-`build_library`, at first use, into `build/repro_torch_kernels/`; a
-missing `nvcc` or a failed build raises.
+launch that computes only the pairs and writes z directly. It is built,
+bound and launched through `kernels/library.py`, at first use; a failed
+build raises.
 
 `dot_interaction` takes the plain version for CPU tensors and the kernel
 for CUDA tensors, with no fallback between them. On the CUDA route the
@@ -22,55 +21,24 @@ gradient is `DotInteraction`'s backward, the plain math of
 """
 from __future__ import annotations
 
-import ctypes
 import threading
-from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.embedding_bag.kernel import build_library
+from repro_torch.kernels import library
 
 #: Launches of the CUDA kernel since the count was last set to 0; only
 #: `dot_interaction_cuda` adds to it, once a launch, under a lock.
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
-_LOAD_LOCK = threading.Lock()
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "dot_interaction.cu",)
 MAX_FEATURES = 1024        # kMaxFeatures in csrc/dot_interaction.cu
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-_lib = None
-
-
-def build() -> dict:
-    """Compile the dot-interaction library (see `build_library`)."""
-    return build_library("dot_interaction", SOURCES)
 
 
 def _count_launch() -> None:
     global LAUNCHES
     with _COUNT_LOCK:
         LAUNCHES += 1
-
-
-def _library():
-    global _lib
-    with _LOAD_LOCK:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build()["path"])
-        ll, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-        lib.dot_interaction_launch.argtypes = [ptr, ptr, ptr, ll, i32, i32,
-                                               i32, ptr]
-        lib.dot_interaction_launch.restype = i32
-        lib.dot_interaction_last_launch_info.argtypes = [ptr]
-        lib.dot_interaction_last_launch_info.restype = i32
-        lib.dot_interaction_error_string.argtypes = [i32]
-        lib.dot_interaction_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return _lib
 
 
 LAUNCH_INFO_KEYS = ("registers", "blocks_per_sm", "local_bytes",
@@ -83,13 +51,8 @@ def last_launch_info() -> dict:
     """Registers per thread, resident blocks per SM, spill bytes and the
     launch shape of the instantiation launched last; `path` is 0 for one
     warp a sample, 1 for the tiled path."""
-    lib = _library()
-    out = (ctypes.c_int * len(LAUNCH_INFO_KEYS))()
-    err = lib.dot_interaction_last_launch_info(out)
-    if err:
-        raise RuntimeError("launch info query failed: "
-                           + lib.dot_interaction_error_string(err).decode())
-    return dict(zip(LAUNCH_INFO_KEYS, out))
+    return library.launch_info("dot_interaction_last_launch_info",
+                               LAUNCH_INFO_KEYS)
 
 
 def dot_interaction_ref(bottom_out: torch.Tensor,
@@ -127,7 +90,7 @@ def dot_interaction_cuda(bottom_out: torch.Tensor,
                 T + 1 <= MAX_FEATURES
     returns:    [B, D + C(T + 1, 2)] in their type
     """
-    if (bottom_out.dtype not in _DTYPE_CODES
+    if (bottom_out.dtype not in library.DTYPE_CODES
             or pooled.dtype != bottom_out.dtype):
         raise ValueError(f"bottom_out and pooled must both be float32 or "
                          f"bfloat16, got {bottom_out.dtype} and "
@@ -155,15 +118,10 @@ def dot_interaction_cuda(bottom_out: torch.Tensor,
                       dtype=bottom_out.dtype, device=bottom_out.device)
     if batch == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(bottom_out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dot_interaction_launch(
-            bottom_out.data_ptr(), pooled.data_ptr(), out.data_ptr(), batch,
-            features, dim, _DTYPE_CODES[bottom_out.dtype], stream)
-    if err:
-        raise RuntimeError("dot_interaction kernel launch failed: "
-                           + lib.dot_interaction_error_string(err).decode())
+    library.launch(
+        "dot_interaction_launch", bottom_out.device,
+        bottom_out.data_ptr(), pooled.data_ptr(), out.data_ptr(), batch,
+        features, dim, library.DTYPE_CODES[bottom_out.dtype])
     _count_launch()
     return out
 

@@ -110,14 +110,6 @@ def test_cuda_request_without_card_raises():
                                     torch.zeros(2, 3, 8, device="cuda"))
 
 
-def test_build_without_nvcc_raises(monkeypatch):
-    """No fallback: where nvcc is missing the build raises."""
-    monkeypatch.setenv("PATH", "")
-    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        interaction.build()
-
-
 def test_cpu_path_does_not_launch():
     from repro_torch.core.embedding import EmbeddingStageConfig
     from repro_torch.models import DLRM, DLRMConfig
