@@ -50,7 +50,9 @@ and the script exits non-zero:
                   D, D=256 (two row passes), L=1, L under the ring depth,
                   L=257, ring depths 2-16, out-of-range indices, one table
                   at the serve shape (R=500K, B=2048, L=150, D=128) and the
-                  completion shape (T=1, B=2048, L=150) through its caller
+                  completion shape (T=1, B=2048, L=150) through its caller;
+                  the hard bags (L=150 copies of one all-positive row, L=257
+                  rows of magnitudes 1e-3 to 1e3) against their exact sum
   4. parity_fused the fused kernel vs fused_warm_lookup_plain on the card:
                   sum/mean, weights on/off, hot K 0/>0, all-hit, mixed,
                   PAD and all-miss slot maps, ragged B at every
@@ -58,7 +60,8 @@ and the script exits non-zero:
                   T=3 in one launch, a bad slot and a bad row (NaN), bf16;
                   one table at the serve shape with a warm cache; and the
                   law on a small model: tiered pooled output equals the
-                  device kernel's bit for bit (hot set, refresh, update)
+                  device kernel's bit for bit (hot set, refresh, update);
+                  the hard bags of phase parity, every slot a warm hit
   4b. interaction the dot-interaction kernel vs dot_interaction_ref on
                   the card (f32 and bf16): the serve shape (B=2048, F=251,
                   D=128) and the benchmark model's (16384, 9, 64), F not a
@@ -72,7 +75,8 @@ and the script exits non-zero:
   4c. ragged      the ragged-tables bag kernel vs ref.ragged_tables_bag_ref
                   (f32 and bf16 tables, the scalar path, dlrm-dcnv2's bag
                   sizes), NaN bags for out-of-range ids, the stacked
-                  kernel's bits on equal f32 tables; then dlrm-dcnv2 at
+                  kernel's bits on equal f32 tables, the hard bags of phase
+                  parity (one table each, one launch); then dlrm-dcnv2 at
                   full width (26 tables, 52.27 GB bf16) through
                   DLRM.forward at batch 8,192: finite logits, one bag
                   launch, the pooled bags against the plain version at
@@ -516,8 +520,9 @@ def check_geometry(opts, info: dict, dim: int, itemsize: int,
 
 
 def compare(got, want, bound, name: str) -> dict:
-    """|got - want| <= bound elementwise; NaN only where `want` is NaN."""
-    got, want, bound = got.float(), want.float(), bound.float()
+    """|got - want| <= bound elementwise; NaN only where `want` is NaN.
+    Taken in float64, so a float64 `want` (an exact sum) is not rounded."""
+    got, want, bound = got.double(), want.double(), bound.double()
     nan = torch.isnan(want)
     check(bool(torch.equal(torch.isnan(got), nan)),
           f"{name}: NaN pattern differs from the plain version")
@@ -527,6 +532,126 @@ def compare(got, want, bound, name: str) -> dict:
                        f"its bound by {excess:.3e}")
     return {"case": name, "max_abs_err": err.max().item(),
             "max_err_over_bound": (err / bound.clamp_min(1e-30)).max().item()}
+
+
+# the summation's hard bags (phases parity, parity_fused and ragged):
+# L = 150 copies of one all-positive row, the coherent repeats whose
+# rounding errors a plain f32 chain adds up past the rule, and L = 257 rows
+# of magnitudes 1e-3 to 1e3 (each row scaled by 10^u, u uniform in [-3, 3])
+HARD_REPEAT_L, HARD_MIXED_L = 150, 257
+
+
+def _hard_tables(gen, tables: int, rows: int, dim: int) -> torch.Tensor:
+    """f32 [tables, rows, dim] on `gen`'s device: the even tables
+    all-positive rows in [0.5, 1.5), the odd ones rows of magnitudes 1e-3
+    to 1e3."""
+    dev = gen.device
+    tab = torch.rand((tables, rows, dim), generator=gen, device=dev) + 0.5
+    scale = 10.0 ** (6 * torch.rand((tables, rows, 1), generator=gen,
+                                    device=dev) - 3)
+    mixed = torch.randn((tables, rows, dim), generator=gen,
+                        device=dev) * scale
+    return torch.where((torch.arange(tables, device=dev) % 2 == 1)
+                       [:, None, None], mixed, tab)
+
+
+def _hard_indices(gen, batch: int, tables: int, rows: int, pooling: int,
+                  repeat: bool) -> torch.Tensor:
+    """int32 [batch, tables, pooling] on `gen`'s device: one row a bag
+    repeated `pooling` times, or uniform rows."""
+    if repeat:
+        one = torch.randint(0, rows, (batch, tables, 1), generator=gen,
+                            device=gen.device, dtype=torch.int32)
+        return one.expand(batch, tables, pooling).contiguous()
+    return torch.randint(0, rows, (batch, tables, pooling), generator=gen,
+                         device=gen.device, dtype=torch.int32)
+
+
+def _exact_bags(table, idx, w=None, mode: str = "sum") -> torch.Tensor:
+    """The plain version's bags [B, D] with their sums taken exactly: each
+    term (the f32 product w·x where weighted, rounded as the plain version
+    and the kernels round it) and a weighted mean's denominator summed in
+    float64, the mean divided there too."""
+    rows = table[idx.long()].float()
+    if w is not None:
+        rows = rows * w.float()[..., None]
+    out = rows.double().sum(dim=1)
+    if mode == "mean":
+        out = out / (w.double().sum(dim=1).clamp_min(1e-9)[:, None]
+                     if w is not None else float(idx.shape[1]))
+    return out
+
+
+def _hard_share(results: list) -> float:
+    """The largest gap over the bound among the hard-bag cases."""
+    return max(r["max_err_over_bound"] for r in results
+               if r["case"].startswith("hard "))
+
+
+def _hard_cases(gen, rows: int, pool) -> list:
+    """The hard bags, 13 of each on two tables (one all-positive, one of
+    mixed magnitudes), in sum and weighted mean, each held to the exact
+    sum at `ref.summation_bound`; `pool(tables, idx, w, mode)` pools them
+    through a kernel and returns (pooled, bound)."""
+    hard = _hard_tables(gen, 2, rows, 128)
+    out = []
+    for pooling, repeat in ((HARD_REPEAT_L, True), (HARD_MIXED_L, False)):
+        idx = _hard_indices(gen, 13, 2, rows, pooling, repeat)
+        for mode, weighted in (("sum", False), ("mean", True)):
+            w = (torch.rand(idx.shape, generator=gen, device=gen.device)
+                 if weighted else None)
+            got, bound = pool(hard, idx, w, mode)
+            want = torch.stack([_exact_bags(
+                hard[t], idx[:, t], None if w is None else w[:, t], mode)
+                for t in range(2)], 1)
+            out.append(compare(
+                got, want, bound,
+                f"hard {'repeat' if repeat else 'mixed'} L={pooling} {mode} "
+                f"w={int(weighted)}"))
+    return out
+
+
+def _hard_bag_cases(gen) -> list:
+    """The hard bags through the embedding-bag kernel."""
+    def pool(hard, idx, w, mode):
+        got = kernel.embedding_bag_cuda(hard, idx, w,
+                                        kernel.EmbeddingBagOpts(mode=mode))
+        bound = torch.stack([ref.summation_bound(
+            hard[t], idx[:, t], None if w is None else w[:, t], mode)
+            for t in range(hard.shape[0])], 1)
+        return got, bound
+    return _hard_cases(gen, 1000, pool)
+
+
+def _hard_fused_cases(gen) -> list:
+    """The hard bags through the fused kernel, every slot a warm hit (the
+    indices are slots of a 200-row cache, no hot block)."""
+    def pool(hard, slots, w, mode):
+        raw = fused.pool_tables(hard, slots, torch.zeros_like(slots), w,
+                                None, 1, fused.FusedLookupOpts())[0]
+        return (fused.mean_epilogue(raw, w, slots.shape[2], mode),
+                _fused_bound(hard, slots, w, None, mode))
+    return _hard_cases(gen, 200, pool)
+
+
+def _hard_ragged_case(gen) -> dict:
+    """The hard bags through the ragged kernel: a table of all-positive
+    rows whose bags of 150 repeat one row, beside one of mixed magnitudes
+    with bags of 257, in one launch, held to the exact sum."""
+    layout = kernel.RaggedLayout((1000, 1000), (HARD_REPEAT_L, HARD_MIXED_L))
+    hard = _hard_tables(gen, 2, 1000, 128)
+    idx = torch.cat([_hard_indices(gen, 13, 1, 1000, HARD_REPEAT_L, True),
+                     _hard_indices(gen, 13, 1, 1000, HARD_MIXED_L, False)],
+                    dim=2).view(13, -1)
+    got = _ragged_launch(hard.view(-1, 128), idx, layout)
+    co = layout.col_offsets()
+    cols = [idx[:, co[t]:co[t + 1]] for t in range(2)]
+    return compare(
+        got, torch.stack([_exact_bags(hard[t], cols[t]) for t in range(2)], 1),
+        torch.stack([ref.summation_bound(hard[t], cols[t])
+                     for t in range(2)], 1),
+        f"hard repeat L={HARD_REPEAT_L} and mixed L={HARD_MIXED_L} B=13 "
+        f"D=128 f32")
 
 
 def phase_parity() -> dict:
@@ -634,11 +759,13 @@ def phase_parity() -> dict:
             ref.summation_bound(flat, ar, mode=mode),
             f"completion shape T=1 B={n} L={pooling} D={dim} f32 {mode}"))
     del bag_rows, flat, ar
+    results += _hard_bag_cases(gen)
     f32 = [r for r in results if not r["case"].startswith("bfloat16")]
     return {"cases": len(results),
             "max_abs_err_f32": max(r["max_abs_err"] for r in f32),
             "max_err_over_bound": max(r["max_err_over_bound"]
                                       for r in results),
+            "hard_max_err_over_bound": _hard_share(results),
             "results": results}
 
 
@@ -883,11 +1010,13 @@ def phase_parity_fused() -> dict:
             law.append({"combine": combine, "fused": fused_on,
                         "steps": steps, "equal": True})
             twin.ebc.storage.close()
+    results += _hard_fused_cases(gen)
     f32 = [r for r in results if not r["case"].startswith("bfloat16")]
     return {"cases": len(results),
             "max_abs_err_f32": max(r["max_abs_err"] for r in f32),
             "max_err_over_bound": max(r["max_err_over_bound"]
                                       for r in results),
+            "hard_max_err_over_bound": _hard_share(results),
             "serve_shape": serve_cmp, "law": law, "results": results}
 
 
@@ -1175,6 +1304,7 @@ def phase_ragged() -> dict:
         kernel.embedding_bag_cuda(stacked, idx3))
     expect(failed, same, "equal f32 tables: not the stacked kernel's bits")
     del tables, idx, got, stacked, idx3
+    results.append(_hard_ragged_case(gen))
     torch.cuda.empty_cache()
     full = _ragged_full_width(failed)
     return {"cases": len(results), "failed": failed,
@@ -1182,6 +1312,7 @@ def phase_ragged() -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in results),
             "max_err_over_bound": max(r["max_err_over_bound"]
                                       for r in results),
+            "hard_max_err_over_bound": _hard_share(results),
             "results": results, "full_width": full}
 
 

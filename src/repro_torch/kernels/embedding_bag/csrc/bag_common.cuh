@@ -1,20 +1,22 @@
 // The gather-and-pool core shared by the embedding-bag kernel
-// (embedding_bag.cu) and the fused warm-cache lookup kernel
-// (fused_lookup.cu), written for Hopper (sm_90a).
+// (embedding_bag.cu), the fused warm-cache lookup kernel (fused_lookup.cu)
+// and the ragged-tables kernel (ragged_bag.cu), written for Hopper (sm_90a).
 //
-// Both kernels pool one bag per warp with the same instructions in the same
+// All three pool one bag per warp with the same instructions in the same
 // order: a lane's 16-byte share of each row, products with the lookup's
 // weight rounded once (__fmul_rn, weighted bags only), and a compensated
-// f32 sum taken in lookup order. That is what lets the tiered backend's
-// pooled output equal the device backend's bit for bit: a bag that the
-// fused kernel pools whole, and a bag that the cold path recomputes through
-// the embedding-bag kernel, go through this one function.
+// f32 sum taken in lookup order (Kahan's, add_compensated). That is what
+// lets the tiered backend's pooled output equal the device backend's bit
+// for bit: a bag that the fused kernel pools whole, and a bag that the cold
+// path recomputes through the embedding-bag kernel, go through this one
+// function.
 //
-// What bounds both kernels on an H100. The floor is the bytes of the
+// What bounds the kernels on an H100. The floor is the bytes of the
 // distinct rows (about 0.25 FLOP per byte of f32 row, far under the ridge
-// point). On med_hot traffic the caches serve most repeats, so the first
-// limit is the instructions the loop spends per lookup: the compensated add
-// alone is 28 of about 40 warp instructions a lookup of a D=128 f32 row
+// point). On hot traffic the caches serve most repeats, so the first limit
+// is the instructions the loop spends per lookup, of which the compensated
+// add is the largest part (16 FADDs of about 43 warp instructions a lookup
+// of a D=128 f32 row), and then each row's pass through shared memory
 // (PERF.md). So:
 //  * rows are staged in shared memory by asynchronous copies (cp.async,
 //    16 bytes a lane), into a per-warp ring of DEPTH row slots filled
@@ -28,9 +30,11 @@
 //    and branches on a register bit;
 //  * the loop runs in unrolled chunks of max(DEPTH, 8) lookups, so slot
 //    offsets are constants and only the bag's last chunk checks its end;
-//  * the compensated add is the branch-free TwoSum, whose error term is the
-//    exact rounding error of the add (the same bits as a compare-and-select
-//    Neumaier step wherever the sum is finite);
+//  * the compensated add is Kahan's recurrence, four f32 operations and no
+//    branch, whose result is within (2u + O(L·u²))·Σ|x| of the exact sum
+//    (u = eps/2; Goldberg 1991, Theorem 8): half of the 2·eps·Σ|w·x| rule
+//    the kernels are held to, where a plain f32 chain of a bag's repeats
+//    breaks it;
 //  * unweighted bags (WEIGHTED=false) carry no weight, no product and no
 //    weight sum;
 //  * indices, slots and weights are read, and outputs written, as streaming
@@ -86,14 +90,19 @@ __device__ __forceinline__ float quiet_nan() {
   return __int_as_float(0x7fc00000);
 }
 
-// s + c carries a sum; add y with its exact rounding error kept in c
-// (TwoSum: six operations and no branch).
-__device__ __forceinline__ void add_compensated(float& s, float& c, float y) {
+// s - c carries a sum, c being the excess of s over it; add x (Kahan's
+// recurrence: four operations, no branch). The intrinsics keep nvcc from
+// contracting or reassociating it, which would drop the compensation.
+__device__ __forceinline__ void add_compensated(float& s, float& c, float x) {
+  const float y = __fsub_rn(x, c);
   const float t = __fadd_rn(s, y);
-  const float z = __fsub_rn(t, s);
-  const float e = __fadd_rn(__fsub_rn(s, __fsub_rn(t, z)), __fsub_rn(y, z));
-  c = __fadd_rn(c, e);
+  c = __fsub_rn(__fsub_rn(t, s), y);
   s = t;
+}
+
+// The sum that (s, c) carries, rounded once.
+__device__ __forceinline__ float fold_compensated(float s, float c) {
+  return __fsub_rn(s, c);
 }
 
 // What a kernel tells the core about lookup q of a bag: where its row
@@ -313,8 +322,8 @@ __device__ __forceinline__ void pool_bag(Src& src, int L, int dim, char* smem,
       pool_pass_scalar<T, WEIGHTED>(src, L, lane, active, col_bytes, ent, wts,
                                     c0 == 0, acc, comp, wsum, wcomp);
 #pragma unroll
-    for (int i = 0; i < N; ++i) acc[i] += comp[i];
-    if (active) finish(col, acc, wsum + wcomp);
+    for (int i = 0; i < N; ++i) acc[i] = fold_compensated(acc[i], comp[i]);
+    if (active) finish(col, acc, fold_compensated(wsum, wcomp));
   }
 }
 

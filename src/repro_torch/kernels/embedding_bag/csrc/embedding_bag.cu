@@ -21,20 +21,23 @@
 //    and kept with two bitmasks per window; read and written as streaming
 //    data;
 //  * a leaner loop: unrolled chunks with constant slot offsets, no weight,
-//    product or weight sum for unweighted bags, a branch-free compensated
-//    add (bag_common.cuh);
+//    product or weight sum for unweighted bags, Kahan's compensated add
+//    (four f32 operations an element, bag_common.cuh);
 //  * grid = (ceil(B / bags_per_block), T): one launch writes pooled [B, T, D].
-// What is left: the compensated add is most of the loop, and on served
-// traffic some repeats now reach device memory (PERF.md).
+// What is left: the loop's instructions where the caches serve the rows,
+// and on served traffic the repeats that reach device memory (PERF.md).
 // Rows below num_hot are read through the separate `hot` operand (the
 // hot-first prefix of each table). Pinning it in L2 with a persisting
 // access-policy window (paper §IV-C) is later work.
 //
 // Sums accumulate in f32 in lookup order, like the Pallas fori_loop, with
-// a compensated (TwoSum) add: med_hot bags repeat hot rows many times, and
+// Kahan's compensated add: med_hot bags repeat hot rows many times, and
 // the rounding errors of a plain 150-term chain then add up coherently (at
 // the serve shape they broke the 2·eps·Σ|w·x| rule against the plain
-// version). Results are written in the table's type. A weighted mean
+// version); Kahan's sum stays within (2u + O(L·u²))·Σ|w·x| of the exact
+// one (u = eps/2), half the rule. The fused and ragged kernels pool through
+// the same function, which is what keeps the tiered backend's bags equal to
+// this kernel's bit for bit. Results are written in the table's type. A weighted mean
 // divides by max(sum(w), 1e-9), an unweighted one by L. An index outside
 // [0, R) is never dereferenced: it contributes NaN, as jnp.take's default
 // fill does. Every table offset is 64-bit: T*R*D reaches 1.6e10 elements at

@@ -21,13 +21,15 @@
 // gather-and-pool pass runs the core shared with embedding_bag.cu
 // (bag_common.cuh): one warp per bag over grid (ceil(B / bags_per_block),
 // T), rows staged in a shared-memory ring by cp.async, slots turned into
-// row addresses and bitmasks 32 at a time, unrolled chunks, a branch-free
-// compensated add, no weight work for unweighted bags. The slot map is read
-// once, streaming: the staging of each window of 32 slots also does the
-// bag's share of the miss list. What still bounds it is the loop: the
-// bit-exact compensated add per hit (PERF.md). A bag with no miss comes
-// out bit for bit as the embedding-bag kernel pools it, which is what lets
-// the tiered backend equal the device backend.
+// row addresses and bitmasks 32 at a time, unrolled chunks, Kahan's
+// compensated add (four f32 operations an element, within (2u +
+// O(L·u²))·Σ|w·x| of the exact sum, u = eps/2), no weight work for
+// unweighted bags. The slot map is read once, streaming: the staging of
+// each window of 32 slots also does the bag's share of the miss list. What
+// still bounds it is the loop's instructions per hit (PERF.md). A bag with
+// no miss comes out bit for bit as the embedding-bag kernel pools it,
+// because both pool through the one function: that is what lets the tiered
+// backend equal the device backend.
 //
 // The miss list without a sequential grid. The TPU kernel keeps running
 // miss counters in SMEM from one sequential grid step to the next and

@@ -15,8 +15,9 @@
 // What bounds it on an H100: the bytes of the distinct rows, as for the
 // stacked kernel (embedding_bag.cu); the gather-and-pool core is the same
 // (bag_common::pool_bag: one warp a bag, a cp.async ring in shared memory,
-// a compensated f32 sum in lookup order), so with equal tables and bag
-// lengths this kernel's f32 sums are the stacked kernel's bit for bit.
+// Kahan's compensated f32 sum in lookup order, within (2u + O(L·u²))·Σ|x|
+// of the exact sum, u = eps/2), so with equal tables and bag lengths this
+// kernel's f32 sums are the stacked kernel's bit for bit.
 //
 // Spreading uneven bags. A block pools `bags_per_block` bags of ONE table,
 // so its warps carry equal work and a 100-lookup bag is never the
