@@ -74,7 +74,9 @@ and the script exits non-zero:
                   the autograd route against autograd
   4c. ragged      the ragged-tables bag kernel vs ref.ragged_tables_bag_ref
                   (f32 and bf16 tables, the scalar path, dlrm-dcnv2's bag
-                  sizes), NaN bags for out-of-range ids, the stacked
+                  sizes, hstu-ranking's two D=512 tables in bags of one
+                  at the cell's batch, exact), NaN bags for out-of-range
+                  ids, the stacked
                   kernel's bits on equal f32 tables, the hard bags of phase
                   parity (one table each, one launch); then dlrm-dcnv2 at
                   full width (26 tables, 52.27 GB bf16) through
@@ -92,6 +94,21 @@ and the script exits non-zero:
                   `MLPTower.epilogue_layers` one a layer where
                   `epilogue_pays` (all but dlrm-production's first top
                   layer)
+  4e. hstu       the HSTU attention kernel vs its plain version
+                  (`hstu_attention_ref`) on the card: the cell's longest
+                  user (8,192 history tokens + 256 candidates) and the
+                  cell's mixed batch of 8 users at full width (4 heads of
+                  128, N = 8,448), edge cases of lengths (0, 1, 63, 64, 65
+                  tokens ...), and times on the bucket thresholds; each user's gap over its
+                  largest entry within HSTU_TOL. Then hstu-ranking at
+                  full width (the 50 M-row item table, 51.2 GB bf16)
+                  through HSTU.forward: one ragged bag launch and one
+                  attention launch a layer, the token rows equal to a
+                  plain gather of the tables, the tokens and pairs
+                  counters, and its logits and states against the same
+                  forward with the plain attention.
+                  Registers, spill and blocks per SM; the kernel timed on
+                  the mixed batch against its FLOP bound
   5. serve        dlrm_production at full width through ServingSession on
                   the `device` backend: 3 batches of 2048 med_hot queries;
                   the bag and interaction kernels launch once per forward;
@@ -208,7 +225,7 @@ and the script exits non-zero:
 
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
 `--stop-after PHASE` ends the run after that phase (build, lm_zoo,
-lm_serve, spmd_lm_train, parity_fused, interaction, ragged, towers,
+lm_serve, spmd_lm_train, parity_fused, interaction, ragged, towers, hstu,
 kernel_time,
 kernel_diag,
 replay_device, replay_tiered, quickstart, spmd_dlrm, spmd_dryrun,
@@ -255,6 +272,9 @@ from repro_torch.examples import quickstart, train_dlrm  # noqa: E402
 from repro_torch.kernels import library as cuda_library  # noqa: E402
 from repro_torch.kernels.embedding_bag import fused, kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.embedding_bag.grad import embedding_bag_backward  # noqa: E402
+from repro_torch.kernels.hstu_attention import kernel as hstu_kernel  # noqa: E402
+from repro_torch.kernels.hstu_attention.ref import (  # noqa: E402
+    bucket_thresholds, hstu_attention_ref)
 from repro_torch.kernels.interaction import kernel as interaction  # noqa: E402
 from repro_torch.models import (DLRM, abstract_params, build_model,  # noqa: E402
                                 build_plan, model_flops)
@@ -265,6 +285,7 @@ from repro_torch.launch.steps import (distribute_inputs,  # noqa: E402
                                       make_dlrm_train_step,
                                       make_lm_train_step)
 from repro_torch.models.config import ShapeConfig  # noqa: E402
+from repro_torch.models import hstu as hstu_model  # noqa: E402
 from repro_torch.models.dlrm import bce_with_logits  # noqa: E402
 from repro_torch.models.layers import MLPTower, epilogue_pays  # noqa: E402
 from repro_torch.optim import (adamw_lowmem_init,  # noqa: E402
@@ -1043,9 +1064,15 @@ INTERACTION_CASES = (
     ("wide_d", 3, 5, 2000, torch.float32),
 )
 INTERACTION_GRAD_CASES = ((64, 251, 128), (256, 9, 64), (13, 37, 33))
-# ragged: name, table rows, bag sizes, dim, tables' dtype, batch; the
-# last case keeps dlrm-dcnv2's bag sizes and dim with its tables cut to
-# 100,000 rows at most (the full-width forward follows)
+# ragged: name, table rows, bag sizes, dim, tables' dtype, batch;
+# dcnv2_bags keeps dlrm-dcnv2's bag sizes and dim with its tables cut to
+# 100,000 rows at most (the full-width forward follows); hstu_bags is
+# hstu-ranking's embedding stage (items, actions; bags of one row, D =
+# 512 bf16) with the item table cut to 1 M rows (phase hstu runs it at
+# full width), at the cell's batch: 11,996 engagements and 2,048
+# candidates a batch
+HSTU_CFG = get_config("hstu-ranking")
+HSTU_CELL_EVENTS = tuple(round(256 * 16 ** (k / 7)) for k in range(8))
 RAGGED_CASES = (
     ("small", (3, 10, 40, 1000, 7), (1, 3, 2, 12, 1), 16, torch.float32,
      13),
@@ -1054,6 +1081,9 @@ RAGGED_CASES = (
     ("scalar", (50, 70, 9), (5, 33, 1), 99, torch.float32, 9),
     ("dcnv2_bags", tuple(min(r, 100_000) for r in DCNV2.embedding.table_rows),
      DCNV2.embedding.table_pooling, 128, torch.bfloat16, 513),
+    ("hstu_bags", (1_000_000, HSTU_CFG.action_rows), (1, 1),
+     HSTU_CFG.d_model, torch.bfloat16,
+     sum(HSTU_CELL_EVENTS) + 8 * 256),
 )
 RAGGED_STACKED = (6, 5000, 20, 128, 257)   # T, R, L, D, B: equal tables
 RAGGED_BATCH = 8192                        # the benchmark cell's batch
@@ -1275,6 +1305,9 @@ def phase_ragged() -> dict:
         bound = 2 * eps * ref.ragged_tables_bag_ref(
             tables.float().abs(), idx, layout.row_offsets(),
             layout.col_offsets())
+        if max(bags) == 1:
+            expect(failed, torch.equal(got, want),
+                   f"{name}: bags of one row differ from the plain gather")
         results.append({**compare(got, want, bound,
                                   f"{name} B={batch} D={dim} {dtype}"),
                         "ring_depth": info["ring_depth"],
@@ -1522,6 +1555,236 @@ def phase_towers() -> dict:
     return {"towers": towers,
             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "failed": failed}
+
+
+# The hstu phase. Tolerance, as each user's gap over its largest entry:
+# both sides are f32 with TF32 off; the kernel sums each product's 128
+# terms and each row's keys in its own order, and takes SiLU through a
+# fast exp and divide (2 ulp each), so a weight A_ij moves by a few parts
+# in 1e7 and a row, a sum of like-signed terms in the main, by about the
+# same. 1e-5 leaves ten times that; bf16 inputs (2**-9) would break it
+# 400-fold. The forward's 8 layers carry the attention's gap through
+# LayerNorms that rescale it, and are held to the same.
+HSTU_TOL = 1e-5
+HSTU_N, HSTU_HEADS, HSTU_D, HSTU_BUCKETS = 8448, 4, 128, 128
+HSTU_EDGE = ((0, 1, 63, 64, 65, 200, 130), (5, 0, 64, 1, 130, 3, 0))
+HSTU_ITERS = 20
+
+
+def _hstu_inputs(gen, history, candidates, bias_std=1.0, times=None):
+    """One jagged batch on the card: token counts a user, q, k, v as the
+    model's SiLU'd column blocks of one buffer, each history pair of
+    tokens sharing an engagement's time and the candidates the request's
+    (exponential gaps of 3,600 s) unless `times` is given, and biases of
+    `bias_std` so that an error in a gathered entry shows."""
+    layout = hstu_kernel.JaggedLayout(
+        tuple(history), tuple(candidates),
+        torch.tensor([0, *np.cumsum(history)], dtype=torch.int32,
+                     device="cuda"),
+        torch.tensor([0, *np.cumsum(candidates)], dtype=torch.int32,
+                     device="cuda"))
+    rows, width = layout.rows, HSTU_HEADS * HSTU_D
+    uvqk = F.silu(torch.randn((rows, 4 * width), generator=gen,
+                              device="cuda") * 0.5)
+    _, v, q, k = torch.split(uvqk, width, dim=1)
+    if times is None:
+        hist, cand = [], []
+        for n_h, m in zip(history, candidates):
+            events = (n_h + 1) // 2
+            t = 1_700_000_000 + torch.empty(
+                events + 1, device="cuda", dtype=torch.float64).exponential_(
+                1 / 3600.0, generator=gen).cumsum(0).long()
+            hist.append(t[:events].repeat_interleave(2)[:n_h])
+            cand.append(t[events:].expand(m))
+        times = torch.cat(hist + cand)
+    pos = torch.randn(2 * HSTU_N - 1, generator=gen, device="cuda") * bias_std
+    tw = torch.randn(HSTU_BUCKETS + 1, generator=gen,
+                     device="cuda") * bias_std
+    th = torch.tensor(bucket_thresholds(HSTU_BUCKETS), dtype=torch.int64,
+                      device="cuda")
+    return layout, (q, k, v, layout, times.contiguous(), pos, tw, th)
+
+
+def _hstu_user_gaps(got, want, layout) -> list:
+    """Each user's largest |got - want| over its largest |want|."""
+    out, h0, c0 = [], 0, 0
+    for n_h, m in zip(layout.history, layout.candidates):
+        idx = torch.cat([torch.arange(h0, h0 + n_h, device="cuda"),
+                         layout.hist_total
+                         + torch.arange(c0, c0 + m, device="cuda")])
+        if idx.numel():
+            g, w = got[idx].double(), want[idx].double()
+            out.append(float((g - w).abs().max()
+                             / w.abs().max().clamp_min(1e-300)))
+        h0, c0 = h0 + n_h, c0 + m
+    return out
+
+
+def _hstu_case(failed, name, gen, history, candidates, **kw) -> dict:
+    layout, args = _hstu_inputs(gen, history, candidates, **kw)
+    heads = HSTU_HEADS
+    before = hstu_kernel.LAUNCHES
+    got = hstu_kernel.hstu_attention(*args, heads=heads,
+                                     max_seq_len=HSTU_N)
+    torch.cuda.synchronize()
+    expect(failed, hstu_kernel.LAUNCHES == before + 1,
+           f"{name}: {hstu_kernel.LAUNCHES - before} launches")
+    want = hstu_attention_ref(*args, heads=heads, max_seq_len=HSTU_N)
+    gaps = _hstu_user_gaps(got, want, layout)
+    expect(failed, bool(torch.isfinite(got).all()), f"{name}: not finite")
+    expect(failed, max(gaps) <= HSTU_TOL,
+           f"{name}: a user's gap {max(gaps):.3e} > {HSTU_TOL}")
+    info = hstu_kernel.last_launch_info()
+    return {"case": name, "users": len(history), "rows": layout.rows,
+            "pairs_a_head": layout.pairs(), "max_user_gap": max(gaps),
+            "max_abs_err": float((got - want).abs().max()), **info}
+
+
+def _hstu_timed(fn, iters=HSTU_ITERS) -> float:
+    """Device ms a call, by CUDA events over `iters` calls after two."""
+    for _ in range(2):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _hstu_forward_check(failed) -> dict:
+    """hstu-ranking at full width through HSTU.forward (the 50 M-row item
+    table: row offsets times the row stride pass 2**31 elements), the
+    cell's mixed batch of 8 users: one ragged bag launch and one attention
+    launch a layer, the token rows equal to a plain gather of the tables
+    (bags of one bf16 row widen exactly), the `tokens` and `pairs`
+    counters, and the logits and states against the same forward with the
+    plain attention."""
+    cfg = HSTU_CFG
+    model = hstu_model.HSTU(cfg, device="cuda", seed=3).eval()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    events, cands = HSTU_CELL_EVENTS, (256,) * 8
+    num_e, num_c = sum(events), sum(cands)
+    t = 1_700_000_000 + torch.arange(num_e + num_c, device="cuda") * 60
+    batch = hstu_model.JaggedBatch(
+        events=events, candidates=cands,
+        event_offsets=torch.tensor([0, *np.cumsum(events)],
+                                   dtype=torch.int32, device="cuda"),
+        candidate_offsets=torch.tensor([0, *np.cumsum(cands)],
+                                       dtype=torch.int32, device="cuda"),
+        item_ids=torch.randint(0, cfg.item_rows, (num_e + num_c,),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32),
+        action_ids=torch.randint(0, cfg.action_rows, (num_e,),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32),
+        timestamps=torch.cat([t[:num_e], t[num_e:].reshape(8, 256)[:, :1]
+                              .expand(8, 256).reshape(-1)]))
+    states = {}
+    hook = model.encoder.register_forward_hook(
+        lambda mod, args, out: states.__setitem__(len(states), out))
+    layout = batch.layout()
+    with torch.inference_mode():
+        tables, e = model.ebc.tables, batch.num_events
+        item = tables[batch.item_ids.long()].float()
+        action = tables[cfg.item_rows + batch.action_ids.long()].float()
+        plain_rows = torch.cat([torch.stack([item[:e], action], dim=1)
+                                .reshape(2 * e, -1), item[e:]])
+        embed_equal = torch.equal(model.embed(batch), plain_rows)
+        del item, action, plain_rows
+        before = hstu_kernel.LAUNCHES
+        bag_before = kernel.LAUNCHES
+        model.tokens = model.pairs = 0
+        got = model(batch)
+        torch.cuda.synchronize()
+        launches = hstu_kernel.LAUNCHES - before
+        bag_launches = kernel.LAUNCHES - bag_before
+        counted = (model.tokens, model.pairs)
+        ms = _hstu_timed(lambda: model(batch), iters=5)
+        plain = hstu_model.hstu_attention
+        hstu_model.hstu_attention = (
+            lambda *a, **k: hstu_attention_ref(*a, **k))
+        try:
+            want = model(batch)
+        finally:
+            hstu_model.hstu_attention = plain
+    hook.remove()
+    del model, tables
+    torch.cuda.empty_cache()
+    state_gaps = _hstu_user_gaps(states[0], states[len(states) - 1], layout)
+    logit_gap = float((got - want).abs().max() / want.abs().max())
+    expect(failed, launches == cfg.layers,
+           f"forward: {launches} attention launches for {cfg.layers} layers")
+    expect(failed, bag_launches == 1,
+           f"forward: {bag_launches} ragged bag launches")
+    expect(failed, embed_equal,
+           "forward: token rows differ from a plain gather of the tables")
+    expect(failed, counted == (layout.rows, layout.pairs()),
+           f"forward: counters (tokens, pairs) {counted}, expected "
+           f"{(layout.rows, layout.pairs())}")
+    expect(failed, max(state_gaps) <= HSTU_TOL,
+           f"forward: a user's state gap {max(state_gaps):.3e}")
+    expect(failed, logit_gap <= HSTU_TOL, f"forward: logit gap {logit_gap}")
+    return {"launches": launches, "layers": cfg.layers,
+            "bag_launches": bag_launches, "embed_equal": embed_equal,
+            "item_rows": cfg.item_rows, "tokens": counted[0],
+            "pairs_a_head": counted[1], "forward_ms": ms,
+            "max_user_state_gap": max(state_gaps), "logit_gap": logit_gap}
+
+
+def phase_hstu() -> dict:
+    """Hold the HSTU attention kernel (`csrc/hstu_attention.cu`) to its
+    plain version on the card, at the cell's widths and lengths and on edge
+    cases; then run hstu-ranking through `HSTU.forward` on the kernel and
+    on the plain attention; time the kernel on the cell's mixed batch."""
+    failed, cases = [], []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    longest = HSTU_CELL_EVENTS[-1] * 2
+    cases.append(_hstu_case(failed, "longest_user", gen, (longest,), (256,)))
+    cell_hist = tuple(2 * e for e in HSTU_CELL_EVENTS)
+    cases.append(_hstu_case(failed, "cell_batch", gen, cell_hist,
+                            (256,) * 8))
+    cases.append(_hstu_case(failed, "edges", gen, *HSTU_EDGE))
+    # times on the thresholds: |dt| = th[b] and th[b] - 1 for every b
+    th = bucket_thresholds(HSTU_BUCKETS)
+    hist = torch.tensor([0] + [th[b] for b in range(1, 60)]
+                        + [th[b] - 1 for b in range(2, 60)],
+                        device="cuda")
+    cases.append(_hstu_case(failed, "bucket_edges", gen,
+                            (hist.numel(),), (3,),
+                            times=torch.cat([hist, hist[-3:]])))
+    # the timed shape: the cell's batch
+    layout, args = _hstu_inputs(gen, cell_hist, (256,) * 8, bias_std=0.02)
+    run = lambda: hstu_kernel.hstu_attention(  # noqa: E731
+        *args, heads=HSTU_HEADS, max_seq_len=HSTU_N)
+    ms = _hstu_timed(run)
+    info = hstu_kernel.last_launch_info()
+    plain_ms = _hstu_timed(lambda: hstu_attention_ref(
+        *args, heads=HSTU_HEADS, max_seq_len=HSTU_N), iters=2)
+    flops = 2 * HSTU_HEADS * (2 * HSTU_D) * layout.pairs()
+    bound_ms = flops / 67e12 * 1e3
+    forward = _hstu_forward_check(failed)
+    torch.cuda.empty_cache()
+    return {"cases": cases, "forward": forward,
+            "timed": {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": "operations", "flops": flops,
+                      "tflops": flops / ms / 1e9,
+                      "fraction_of_bound": bound_ms / ms, **info},
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "max_user_gap": max(c["max_user_gap"] for c in cases),
+            "failed": failed}
+
+
+def hstu_kernel_row(hstu: dict) -> dict:
+    """The HSTU attention kernel's row of the `kernels` line, from the
+    `hstu` phase: timed on the cell's mixed batch (one layer)."""
+    t = hstu["timed"]
+    return kernel_row(
+        "hstu_attention", "src/repro_torch/kernels/hstu_attention/csrc/"
+        "hstu_attention.cu", None, hstu["forward"]["launches"],
+        hstu["max_abs_err"], t["ms"], t["plain_ms"], t["bound_ms"],
+        t["bound_by"], None, t, max_user_gap=hstu["max_user_gap"])
 
 
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -4602,6 +4865,14 @@ def main() -> int:
     if stop("towers"):
         return 0
 
+    # 4e. hstu: the HSTU attention kernel, and hstu-ranking's forward
+    t0 = time.perf_counter()
+    hstu = phase_hstu()
+    emit("hstu", **hstu, seconds=time.perf_counter() - t0)
+    check(not hstu["failed"], f"hstu: {hstu['failed']}")
+    if stop("hstu"):
+        return 0
+
     # 5. serve
     t0 = time.perf_counter()
     # shard_pad_tables pads 250 -> 256 tables for a 256-device slice; one
@@ -4910,7 +5181,7 @@ def main() -> int:
             inter["timed"]["serve"]["bound_by"],
             inter["timed"]["serve"]["library_ms"], inter["timed"]["serve"],
             benchmark_shape=inter["timed"]["benchmark"]),
-        ragged_kernel_row(ragged)]}),
+        ragged_kernel_row(ragged), hstu_kernel_row(hstu)]}),
           flush=True)
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)

@@ -1,9 +1,9 @@
 """Config registry: `--arch <id>` resolution + reduced smoke-test variants.
 
 The ten LM architectures (shapes only, copied value for value from the
-JAX package's configs with their `source` tags), `dlrm-production` and
-MLPerf's `dlrm-dcnv2` (the port's only: the JAX package has no ragged
-tables or cross network).
+JAX package's configs with their `source` tags), `dlrm-production`,
+MLPerf's `dlrm-dcnv2` and `hstu-ranking` (the port's only: the JAX package
+has no ragged tables, cross network or HSTU).
 """
 from __future__ import annotations
 
@@ -26,15 +26,16 @@ _ARCH_MODULES = {
     "whisper-medium": "whisper_medium",
 }
 LM_ARCHS = tuple(_ARCH_MODULES)
-_DLRM_MODULES = {"dlrm-production": "dlrm_production",
-                 "dlrm-dcnv2": "dlrm_dcnv2"}
-ALL_ARCHS = LM_ARCHS + tuple(_DLRM_MODULES)
+_RECSYS_MODULES = {"dlrm-production": "dlrm_production",
+                   "dlrm-dcnv2": "dlrm_dcnv2",
+                   "hstu-ranking": "hstu_ranking"}
+ALL_ARCHS = LM_ARCHS + tuple(_RECSYS_MODULES)
 
 
 def get_config(arch: str):
-    if arch in _DLRM_MODULES:
+    if arch in _RECSYS_MODULES:
         return importlib.import_module(
-            f"repro_torch.configs.{_DLRM_MODULES[arch]}").CONFIG
+            f"repro_torch.configs.{_RECSYS_MODULES[arch]}").CONFIG
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; choose from {ALL_ARCHS}")
     return importlib.import_module(

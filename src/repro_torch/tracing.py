@@ -31,6 +31,21 @@ Spans, and what each is for:
                                          DLRM._interact (interaction "dcn"):
                                          dcn_cross_ms, dcn_cross_roofline
     repro_torch.dlrm.top                 the top MLP tower: mlp_ms
+    repro_torch.hstu.forward             HSTU.forward: the whole step (the
+                                         embedding stage's ebc.lookup opens
+                                         inside it)
+    repro_torch.hstu.uvqk                an HSTU layer's LayerNorm, its
+                                         product to U, V, Q and K and the
+                                         SiLU
+    repro_torch.hstu.attention           kernels.hstu_attention, its checks
+                                         to the launch: the attention
+                                         kernel's time (hstu_attn_ms,
+                                         hstu_attn_roofline)
+    repro_torch.hstu.output              an HSTU layer's LayerNorm of A V,
+                                         the gate by U, the product by W_o
+                                         and the residual
+    repro_torch.hstu.head                the task MLP over the candidates'
+                                         last-layer states
 """
 from __future__ import annotations
 
