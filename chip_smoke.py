@@ -100,15 +100,22 @@ and the script exits non-zero:
                   cell's mixed batch of 8 users at full width (4 heads of
                   128, N = 8,448), edge cases of lengths (0, 1, 63, 64, 65
                   tokens ...), and times on the bucket thresholds; each user's gap over its
-                  largest entry within HSTU_TOL. Then hstu-ranking at
+                  largest entry within HSTU_TOL, and each case's time
+                  codes (the build, `hstu_time_codes`) equal to
+                  `time_codes_ref` byte for byte, with every threshold
+                  and one either side. Then hstu-ranking at
                   full width (the 50 M-row item table, 51.2 GB bf16)
                   through HSTU.forward: one ragged bag launch and one
                   attention launch a layer, the token rows equal to a
-                  plain gather of the tables, the tokens and pairs
-                  counters, and its logits and states against the same
-                  forward with the plain attention.
-                  Registers, spill and blocks per SM; the kernel timed on
-                  the mixed batch against its FLOP bound
+                  plain gather of the tables, one code build a forward
+                  inside hstu.forward and outside hstu.attention, the
+                  tokens and pairs counters and the tiles the build
+                  wrote (CODE_TILES), and its logits
+                  and states against the same forward with the plain
+                  attention.
+                  Registers, spill and blocks per SM; one layer of the
+                  kernel timed on the mixed batch against its FLOP bound,
+                  and the code build timed apart
   5. serve        dlrm_production at full width through ServingSession on
                   the `device` backend: 3 batches of 2048 med_hot queries;
                   the bag and interaction kernels launch once per forward;
@@ -274,7 +281,7 @@ from repro_torch.kernels.embedding_bag import fused, kernel, ops, ref  # noqa: E
 from repro_torch.kernels.embedding_bag.grad import embedding_bag_backward  # noqa: E402
 from repro_torch.kernels.hstu_attention import kernel as hstu_kernel  # noqa: E402
 from repro_torch.kernels.hstu_attention.ref import (  # noqa: E402
-    bucket_thresholds, hstu_attention_ref)
+    bucket_thresholds, hstu_attention_ref, time_codes_ref)
 from repro_torch.kernels.interaction import kernel as interaction  # noqa: E402
 from repro_torch.models import (DLRM, abstract_params, build_model,  # noqa: E402
                                 build_plan, model_flops)
@@ -1620,15 +1627,34 @@ def _hstu_user_gaps(got, want, layout) -> list:
     return out
 
 
+def _hstu_codes(layout, args):
+    """The layout's time codes by the build (times, thresholds: args[4],
+    args[7])."""
+    return hstu_kernel.hstu_time_codes(layout, args[4], args[7])
+
+
+def _hstu_kernel_call(args, codes):
+    """One launch of the attention on `_hstu_inputs`' args and the codes."""
+    q, k, v, layout, _, pos, tw, _ = args
+    return hstu_kernel.hstu_attention(q, k, v, layout, codes, pos, tw,
+                                      heads=HSTU_HEADS, max_seq_len=HSTU_N)
+
+
 def _hstu_case(failed, name, gen, history, candidates, **kw) -> dict:
     layout, args = _hstu_inputs(gen, history, candidates, **kw)
     heads = HSTU_HEADS
-    before = hstu_kernel.LAUNCHES
-    got = hstu_kernel.hstu_attention(*args, heads=heads,
-                                     max_seq_len=HSTU_N)
+    before, builds = hstu_kernel.LAUNCHES, hstu_kernel.CODE_BUILDS
+    codes = _hstu_codes(layout, args)
+    got = _hstu_kernel_call(args, codes)
     torch.cuda.synchronize()
     expect(failed, hstu_kernel.LAUNCHES == before + 1,
            f"{name}: {hstu_kernel.LAUNCHES - before} launches")
+    expect(failed, hstu_kernel.CODE_BUILDS == builds + 1,
+           f"{name}: {hstu_kernel.CODE_BUILDS - builds} code builds")
+    codes_equal = torch.equal(codes, time_codes_ref(layout, args[4],
+                                                    args[7]))
+    expect(failed, codes_equal, f"{name}: time codes differ from "
+           f"time_codes_ref")
     want = hstu_attention_ref(*args, heads=heads, max_seq_len=HSTU_N)
     gaps = _hstu_user_gaps(got, want, layout)
     expect(failed, bool(torch.isfinite(got).all()), f"{name}: not finite")
@@ -1636,7 +1662,9 @@ def _hstu_case(failed, name, gen, history, candidates, **kw) -> dict:
            f"{name}: a user's gap {max(gaps):.3e} > {HSTU_TOL}")
     info = hstu_kernel.last_launch_info()
     return {"case": name, "users": len(history), "rows": layout.rows,
-            "pairs_a_head": layout.pairs(), "max_user_gap": max(gaps),
+            "pairs_a_head": layout.pairs(),
+            "code_tiles": layout.code_tiles(), "codes_equal": codes_equal,
+            "max_user_gap": max(gaps),
             "max_abs_err": float((got - want).abs().max()), **info}
 
 
@@ -1659,8 +1687,9 @@ def _hstu_forward_check(failed) -> dict:
     cell's mixed batch of 8 users: one ragged bag launch and one attention
     launch a layer, the token rows equal to a plain gather of the tables
     (bags of one bf16 row widen exactly), the `tokens` and `pairs`
-    counters, and the logits and states against the same forward with the
-    plain attention."""
+    counters, the code build's span once inside `hstu.forward` and outside
+    every `hstu.attention`, and the logits and states against the same
+    forward with the plain attention."""
     cfg = HSTU_CFG
     model = hstu_model.HSTU(cfg, device="cuda", seed=3).eval()
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1694,21 +1723,45 @@ def _hstu_forward_check(failed) -> dict:
         embed_equal = torch.equal(model.embed(batch), plain_rows)
         del item, action, plain_rows
         before = hstu_kernel.LAUNCHES
+        builds = hstu_kernel.CODE_BUILDS
+        tiles = hstu_kernel.CODE_TILES
         bag_before = kernel.LAUNCHES
         model.tokens = model.pairs = 0
         got = model(batch)
         torch.cuda.synchronize()
         launches = hstu_kernel.LAUNCHES - before
+        code_builds = hstu_kernel.CODE_BUILDS - builds
         bag_launches = kernel.LAUNCHES - bag_before
-        counted = (model.tokens, model.pairs)
+        counted = (model.tokens, model.pairs,
+                   hstu_kernel.CODE_TILES - tiles)
         ms = _hstu_timed(lambda: model(batch), iters=5)
-        plain = hstu_model.hstu_attention
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            model(batch)
+            torch.cuda.synchronize()
+        ranges = {}
+        for ev in prof.events():
+            if ev.name.startswith("repro_torch.hstu."):
+                ranges.setdefault(ev.name[len("repro_torch.hstu."):],
+                                  []).append((ev.time_range.start,
+                                              ev.time_range.end))
+        (fwd0, fwd1), = ranges.get("forward", [(0, 0)])
+        codes_spans = ranges.get("time_codes", [])
+        span_ok = (len(codes_spans) == 1
+                   and fwd0 <= codes_spans[0][0] <= codes_spans[0][1] <= fwd1
+                   and all(e <= codes_spans[0][0] or s >= codes_spans[0][1]
+                           for s, e in ranges.get("attention", [])))
+        plain = hstu_model.hstu_time_codes, hstu_model.hstu_attention
+        # the plain attention buckets the times itself: the forward hands
+        # it (times, thresholds) in place of the codes
+        hstu_model.hstu_time_codes = lambda layout, t, th: (t, th)
         hstu_model.hstu_attention = (
-            lambda *a, **k: hstu_attention_ref(*a, **k))
+            lambda q, k, v, layout, codes, pos, tw, **kw: hstu_attention_ref(
+                q, k, v, layout, codes[0], pos, tw, codes[1], **kw))
         try:
             want = model(batch)
         finally:
-            hstu_model.hstu_attention = plain
+            hstu_model.hstu_time_codes, hstu_model.hstu_attention = plain
     hook.remove()
     del model, tables
     torch.cuda.empty_cache()
@@ -1716,20 +1769,26 @@ def _hstu_forward_check(failed) -> dict:
     logit_gap = float((got - want).abs().max() / want.abs().max())
     expect(failed, launches == cfg.layers,
            f"forward: {launches} attention launches for {cfg.layers} layers")
+    expect(failed, code_builds == 1, f"forward: {code_builds} code builds")
+    expect(failed, span_ok, "forward: hstu.time_codes is not one span "
+           "inside hstu.forward and outside hstu.attention")
     expect(failed, bag_launches == 1,
            f"forward: {bag_launches} ragged bag launches")
     expect(failed, embed_equal,
            "forward: token rows differ from a plain gather of the tables")
-    expect(failed, counted == (layout.rows, layout.pairs()),
-           f"forward: counters (tokens, pairs) {counted}, expected "
-           f"{(layout.rows, layout.pairs())}")
+    want_counts = (layout.rows, layout.pairs(), layout.code_tiles())
+    expect(failed, counted == want_counts,
+           f"forward: counters (tokens, pairs, CODE_TILES) {counted}, "
+           f"expected {want_counts}")
     expect(failed, max(state_gaps) <= HSTU_TOL,
            f"forward: a user's state gap {max(state_gaps):.3e}")
     expect(failed, logit_gap <= HSTU_TOL, f"forward: logit gap {logit_gap}")
     return {"launches": launches, "layers": cfg.layers,
+            "code_builds": code_builds, "time_codes_span": span_ok,
             "bag_launches": bag_launches, "embed_equal": embed_equal,
             "item_rows": cfg.item_rows, "tokens": counted[0],
-            "pairs_a_head": counted[1], "forward_ms": ms,
+            "pairs_a_head": counted[1], "code_tiles": counted[2],
+            "forward_ms": ms,
             "max_user_state_gap": max(state_gaps), "logit_gap": logit_gap}
 
 
@@ -1754,16 +1813,30 @@ def phase_hstu() -> dict:
     cases.append(_hstu_case(failed, "bucket_edges", gen,
                             (hist.numel(),), (3,),
                             times=torch.cat([hist, hist[-3:]])))
-    # the timed shape: the cell's batch
+    # every threshold and one either side, rising then falling (both
+    # signs of dt), past 2**53 at the top buckets
+    rise = [0] + [th[b] + d for b in range(1, HSTU_BUCKETS + 1)
+                  for d in (-1, 0, 1)]
+    hist = torch.tensor(rise + rise[::-1], device="cuda")
+    cases.append(_hstu_case(failed, "all_thresholds", gen,
+                            (hist.numel(),), (2,),
+                            times=torch.cat([hist, hist[-2:] + 5])))
+    # the timed shape: the cell's batch, one layer on the forward's codes,
+    # and the build apart
     layout, args = _hstu_inputs(gen, cell_hist, (256,) * 8, bias_std=0.02)
-    run = lambda: hstu_kernel.hstu_attention(  # noqa: E731
-        *args, heads=HSTU_HEADS, max_seq_len=HSTU_N)
-    ms = _hstu_timed(run)
+    codes = _hstu_codes(layout, args)
+    ms = _hstu_timed(lambda: _hstu_kernel_call(args, codes))
     info = hstu_kernel.last_launch_info()
+    build_ms = _hstu_timed(lambda: _hstu_codes(layout, args))
+    build_info = hstu_kernel.last_launch_info()
     plain_ms = _hstu_timed(lambda: hstu_attention_ref(
         *args, heads=HSTU_HEADS, max_seq_len=HSTU_N), iters=2)
     flops = 2 * HSTU_HEADS * (2 * HSTU_D) * layout.pairs()
     bound_ms = flops / 67e12 * 1e3
+    # the build: every code written once, every time read once
+    build_bytes = layout.code_tiles() * hstu_kernel.TILE_BYTES \
+        + layout.rows * 8
+    build_bound_ms = build_bytes / HBM_BW * 1e3
     forward = _hstu_forward_check(failed)
     torch.cuda.empty_cache()
     return {"cases": cases, "forward": forward,
@@ -1771,20 +1844,31 @@ def phase_hstu() -> dict:
                       "bound_by": "operations", "flops": flops,
                       "tflops": flops / ms / 1e9,
                       "fraction_of_bound": bound_ms / ms, **info},
+            "build": {"ms": build_ms, "bound_ms": build_bound_ms,
+                      "bytes": build_bytes, "code_tiles": layout.code_tiles(),
+                      "bound_by": "bytes",
+                      "fraction_of_bound": build_bound_ms / build_ms,
+                      **build_info},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "max_user_gap": max(c["max_user_gap"] for c in cases),
             "failed": failed}
 
 
-def hstu_kernel_row(hstu: dict) -> dict:
-    """The HSTU attention kernel's row of the `kernels` line, from the
-    `hstu` phase: timed on the cell's mixed batch (one layer)."""
-    t = hstu["timed"]
-    return kernel_row(
-        "hstu_attention", "src/repro_torch/kernels/hstu_attention/csrc/"
-        "hstu_attention.cu", None, hstu["forward"]["launches"],
-        hstu["max_abs_err"], t["ms"], t["plain_ms"], t["bound_ms"],
-        t["bound_by"], None, t, max_user_gap=hstu["max_user_gap"])
+def hstu_kernel_rows(hstu: dict) -> list:
+    """The HSTU kernels' rows of the `kernels` line, from the `hstu`
+    phase, on the cell's mixed batch: the attention (one layer) and the
+    time codes' build (one a forward; its codes equal `time_codes_ref`
+    byte for byte, so its error is 0)."""
+    t, b = hstu["timed"], hstu["build"]
+    source = "src/repro_torch/kernels/hstu_attention/csrc/hstu_attention.cu"
+    return [
+        kernel_row("hstu_attention", source, None,
+                   hstu["forward"]["launches"], hstu["max_abs_err"], t["ms"],
+                   t["plain_ms"], t["bound_ms"], t["bound_by"], None, t,
+                   max_user_gap=hstu["max_user_gap"]),
+        kernel_row("hstu_time_codes", source, None,
+                   hstu["forward"]["code_builds"], 0.0, b["ms"], None,
+                   b["bound_ms"], b["bound_by"], None, b)]
 
 
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -5181,7 +5265,7 @@ def main() -> int:
             inter["timed"]["serve"]["bound_by"],
             inter["timed"]["serve"]["library_ms"], inter["timed"]["serve"],
             benchmark_shape=inter["timed"]["benchmark"]),
-        ragged_kernel_row(ragged), hstu_kernel_row(hstu)]}),
+        ragged_kernel_row(ragged), *hstu_kernel_rows(hstu)]}),
           flush=True)
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-// HSTU's pointwise attention over jagged user sequences, one launch a layer
-// (Hopper, sm_90a; f32 on the FFMA pipes, no tensor cores).
+// HSTU's pointwise attention over jagged user sequences, one launch a layer,
+// and the time codes its layers read, one launch a forward (Hopper, sm_90a;
+// f32 on the FFMA pipes, no tensor cores).
 //
 // Replaces no TPU kernel: the JAX package has no HSTU. The operator is that
 // of Zhai et al., "Actions Speak Louder than Words" (arXiv:2402.17152, §3):
@@ -27,18 +28,30 @@
 // [rows, heads * D] column blocks of one buffer with a row stride of `ld`
 // floats; out is [rows, heads * D] with a row stride of out_ld.
 //
+// Time codes. The bucket and the mask depend on neither the head nor the
+// layer, so hstu_time_codes_kernel computes them once a forward, one byte
+// a pair: bucket(|t_i - t_j|) where the mask lets the pair in, and kMasked
+// (255) where it keeps the pair out or where i or j lies past the user's
+// end; so B is at most 254. A user of n tokens has T = ceil(n / 64) query
+// tiles, and its codes are the lower triangle of 64 x 64 tiles: tile (a,
+// b), b <= a, is code tile base(u) + a (a + 1) / 2 + b, where base(u) sums
+// the triangles of the users before u (code_base, from the offsets on the
+// card). Inside a tile the codes are thread-major: the 16 codes of thread
+// t = 16 ty + tx (rows ty + 16 r, columns tx + 16 c) are bytes 16 t + 4 r
+// + c, so a thread fetches its codes of a tile in one 16-byte load.
+//
 // The work. A block takes one (user, head, tile of 64 queries) and walks
 // the key tiles of 64 from the sequence's start to its own diagonal,
 // skipping the tiles of candidates that are not its own, which the mask
 // leaves empty. Per key tile: K and V are copied into shared memory
 // (cp.async, rows past the sequence's end zero-filled; V lands while S
-// is computed), S = Q K^T is
+// is computed) and the thread's 16 codes are loaded, S = Q K^T is
 // register-tiled (4 x 4 pairs a thread, 16-byte shared loads along d), the
-// bias gather, SiLU, 1/N and the mask are applied in registers, A is
-// written over K's shared memory, and O += A V (4 rows x D/16 columns a
-// thread). Q stays in shared memory for the whole walk. About 100 KB of
-// shared memory a block at D = 128, so two blocks share an SM and overlap
-// one's copies with the other's arithmetic.
+// bias gather by the codes, SiLU, 1/N and the mask are applied in
+// registers, A is written over K's shared memory, and O += A V (4 rows x
+// D/16 columns a thread). Q stays in shared memory for the whole walk.
+// About 100 KB of shared memory a block at D = 128, so two blocks share an
+// SM and overlap one's copies with the other's arithmetic.
 //
 // Balance. The work of a query tile grows with its index, and the users of
 // one batch differ 16-fold in length. The grid is one-dimensional, in the
@@ -47,8 +60,8 @@
 // tile lies past its user's end returns at once.
 //
 // Plain-C interface, compiled into the port's one library (library.py);
-// the launch goes on the caller's stream, does not synchronise and
-// allocates nothing. Error codes are cudaError_t, read through
+// the launches go on the caller's stream, do not synchronise and allocate
+// nothing. Error codes are cudaError_t, read through
 // embedding_bag_error_string.
 
 #include <cuda_runtime.h>
@@ -63,7 +76,8 @@ constexpr int kBM = 64;        // queries a block
 constexpr int kBN = 64;        // keys a tile
 constexpr int kThreads = 256;  // 16 x 16 threads
 constexpr int kPad = 4;        // floats after each Q and K row in shared memory
-constexpr int kMaxBuckets = 4096;
+constexpr int kMasked = 255;   // the code of a pair the mask keeps out
+constexpr int kTileCodes = kBM * kBN / 16;  // uint4s of codes a tile
 constexpr float kLog2ToBucket = 0.69314718055994531f / 0.301f;
 
 struct Params {
@@ -75,10 +89,9 @@ struct Params {
   const int* cand_offsets;      // [users + 1]
   int users;
   long long hist_total;         // rows of the history region
-  const long long* times;       // [rows]
+  const uint4* codes;           // the forward's time codes
   const float* pos_bias;        // [2N - 1]
   const float* time_bias;       // [buckets + 1]
-  const long long* thresholds;  // [buckets + 1]
   int buckets;
   float* out;
   long long out_ld;
@@ -89,6 +102,17 @@ struct Params {
   float inv_n;
 };
 
+struct CodeParams {
+  const int* hist_offsets;      // [users + 1]
+  const int* cand_offsets;      // [users + 1]
+  int users;
+  long long hist_total;
+  const long long* times;       // [rows]
+  const long long* thresholds;  // [buckets + 1]
+  int buckets;
+  uint4* codes;                 // [tiles * kTileCodes]
+};
+
 template <int D>
 struct Smem {
   static constexpr int kQStride = D + kPad;
@@ -96,10 +120,9 @@ struct Smem {
   static constexpr size_t kQ = (size_t)kBM * kQStride * 4;
   static constexpr size_t kK = (size_t)kBN * kQStride * 4;  // K, then A
   static constexpr size_t kV = (size_t)kBN * D * 4;
-  static constexpr size_t kKeyTimes = kBN * 8;
   static constexpr size_t kPos = 128 * 4;
   static size_t bytes(int buckets) {
-    return kQ + kK + kV + kKeyTimes + kPos + (size_t)(buckets + 1) * 12;
+    return kQ + kK + kV + kPos + (size_t)(buckets + 1) * 4;
   }
 };
 
@@ -127,16 +150,136 @@ __device__ __forceinline__ long long row_of(int r, int n_h, long long hist0,
   return r < n_h ? hist0 + r : cand0 + (r - n_h);
 }
 
-// bucket(x) for x = |t_i - t_j| >= 0: a first guess from a fast log, then
-// one step to the thresholds', which decide. The guess is within 1e-6 of
+// Query tiles of user u: ceil(n / 64).
+__device__ __forceinline__ int user_tiles(const int* hist_offsets,
+                                          const int* cand_offsets, int u) {
+  const int n = hist_offsets[u + 1] - hist_offsets[u] + cand_offsets[u + 1] -
+                cand_offsets[u];
+  return (n + kBM - 1) / kBM;
+}
+
+// Code tiles of user u: its triangle of query tiles.
+__device__ __forceinline__ long long user_triangle(const int* hist_offsets,
+                                                   const int* cand_offsets,
+                                                   int u) {
+  const long long t = user_tiles(hist_offsets, cand_offsets, u);
+  return t * (t + 1) / 2;
+}
+
+// The first code tile of user u: the triangles of the users before it,
+// summed by the calling warp (all 32 lanes call; each gets the sum).
+__device__ __forceinline__ long long code_base(const int* hist_offsets,
+                                               const int* cand_offsets,
+                                               int u) {
+  long long base = 0;
+  for (int v = threadIdx.x & 31; v < u; v += 32)
+    base += user_triangle(hist_offsets, cand_offsets, v);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) base += __shfl_xor_sync(~0u, base, o);
+  return base;
+}
+
+// The user whose triangle holds code tile `tile`, and the user's first
+// code tile in *base; `users` if the tile lies past the layout. By the
+// calling warp (all 32 lanes call; each gets the answer): an inclusive
+// scan of 32 users' triangles at a time.
+__device__ __forceinline__ int find_user(const int* hist_offsets,
+                                         const int* cand_offsets, int users,
+                                         long long tile, long long* base) {
+  const int lane = threadIdx.x & 31;
+  long long run = 0;
+  for (int u0 = 0; u0 < users; u0 += 32) {
+    const long long tri =
+        u0 + lane < users
+            ? user_triangle(hist_offsets, cand_offsets, u0 + lane)
+            : 0;
+    long long incl = tri;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(~0u, incl, o);
+      if (lane >= o) incl += y;
+    }
+    // the first lane whose running sum passes the tile (a user of no
+    // tiles adds nothing, so it is never the first)
+    const unsigned hit = __ballot_sync(~0u, tile < run + incl);
+    if (hit) {
+      const int at = __ffs(hit) - 1;
+      *base = run + __shfl_sync(~0u, incl - tri, at);
+      return u0 + at;
+    }
+    run += __shfl_sync(~0u, incl, 31);
+  }
+  return users;
+}
+
+// bucket(x) for x = |t_i - t_j|: a first guess from a fast log, then one
+// step to the thresholds, which decide. The guess is within 1e-6 of
 // ln(x) / 0.301 (the fast log2 and the rounding of x to f32), so it lies
 // at most one bucket from the exact one, and one step both ways suffices.
-__device__ __forceinline__ int time_bucket(long long x, const long long* th,
-                                           int buckets) {
-  if (x <= 1) return 0;
-  int b = (int)(__log2f((float)x) * kLog2ToBucket);
+// th[0] = 0 and th[buckets + 1] is a sentinel no x reaches, so the step
+// needs no test of b's range.
+__device__ __forceinline__ unsigned time_bucket(unsigned long long x,
+                                                const unsigned long long* th,
+                                                int buckets) {
+  int b = (int)(__log2f((float)max(x, 1ull)) * kLog2ToBucket);
   b = min(max(b, 0), buckets);
-  return b + (b < buckets && x >= th[b + 1]) - (b > 0 && x < th[b]);
+  return (unsigned)(b + (x >= th[b + 1]) - (x < th[b]));
+}
+
+// One block a code tile; the grid walks the users' triangles in order.
+__global__ void __launch_bounds__(kThreads)
+    hstu_time_codes_kernel(const CodeParams p) {
+  __shared__ long long qt[kBM], kt[kBN];
+  __shared__ unsigned long long th[kMasked + 1];
+  const long long tile = blockIdx.x;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  for (int e = tid; e <= p.buckets + 1; e += kThreads)
+    th[e] = e <= p.buckets ? (unsigned long long)p.thresholds[e] : ~0ull;
+  long long base = 0;
+  const int user =
+      find_user(p.hist_offsets, p.cand_offsets, p.users, tile, &base);
+  if (user == p.users) return;  // uniform across the block
+  // (a, b) of the triangle's entry tile - base, b <= a
+  const long long local = tile - base;
+  int a = (int)((sqrt(8.0 * (double)local + 1.0) - 1.0) * 0.5);
+  while ((long long)(a + 1) * (a + 2) / 2 <= local) ++a;
+  while ((long long)a * (a + 1) / 2 > local) --a;
+  const int b = (int)(local - (long long)a * (a + 1) / 2);
+
+  const int hist_lo = p.hist_offsets[user];
+  const int n_h = p.hist_offsets[user + 1] - hist_lo;
+  const int cand_lo = p.cand_offsets[user];
+  const int n = n_h + (p.cand_offsets[user + 1] - cand_lo);
+  const long long hist0 = hist_lo, cand0 = p.hist_total + cand_lo;
+  const int q0 = a * kBM, k0 = b * kBN;
+  if (tid < kBM + kBN) {
+    // rows past the user's end read its last token's time (their codes
+    // are kMasked)
+    const int r = tid < kBM ? q0 + tid : k0 + tid - kBM;
+    const long long t = p.times[row_of(min(r, n - 1), n_h, hist0, cand0)];
+    if (tid < kBM)
+      qt[tid] = t;
+    else
+      kt[tid - kBM] = t;
+  }
+  __syncthreads();
+
+  unsigned w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = q0 + ty + 16 * r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = k0 + tx + 16 * c;
+      const long long dt = qt[ty + 16 * r] - kt[tx + 16 * c];
+      const unsigned long long x = dt < 0 ? 0ull - (unsigned long long)dt
+                                          : (unsigned long long)dt;
+      const bool in =
+          i < n && j < n && (i >= n_h ? (j < n_h || j == i) : j <= i);
+      w[r] |= (in ? time_bucket(x, th, p.buckets) : kMasked) << (8 * c);
+    }
+  }
+  p.codes[tile * kTileCodes + tid] = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // 64 rows of one head's D columns, local tokens [r0, r0 + 64), into shared
@@ -167,13 +310,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* qs = reinterpret_cast<float*>(smem);
   float* ks = reinterpret_cast<float*>(smem + S::kQ);  // K, then A
   float* vs = reinterpret_cast<float*>(smem + S::kQ + S::kK);
-  long long* key_t =
-      reinterpret_cast<long long*>(smem + S::kQ + S::kK + S::kV);
-  float* pos = reinterpret_cast<float*>(smem + S::kQ + S::kK + S::kV +
-                                        S::kKeyTimes);
-  long long* th = reinterpret_cast<long long*>(
-      smem + S::kQ + S::kK + S::kV + S::kKeyTimes + S::kPos);
-  float* tw = reinterpret_cast<float*>(th + p.buckets + 1);
+  float* pos = reinterpret_cast<float*>(smem + S::kQ + S::kK + S::kV);
+  float* tw =
+      reinterpret_cast<float*>(smem + S::kQ + S::kK + S::kV + S::kPos);
 
   const int bid = blockIdx.x;
   const int head = bid % p.heads;
@@ -191,16 +330,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const long long col = (long long)head * D;
 
   copy_tile<D>(qs, kQS, p.q + col, p.ld, q0, n, n_h, hist0, cand0);
-  for (int b = tid; b <= p.buckets; b += kThreads) {
-    th[b] = p.thresholds[b];
-    tw[b] = p.time_bias[b];
-  }
-  long long q_t[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + ty + 16 * r;
-    q_t[r] = i < n ? p.times[row_of(i, n_h, hist0, cand0)] : 0;
-  }
+  for (int b = tid; b <= p.buckets; b += kThreads) tw[b] = p.time_bias[b];
+  // this thread's codes in code tile (tile, 0); key tile k0 / 64 follows
+  const uint4* codes =
+      p.codes + (code_base(p.hist_offsets, p.cand_offsets, user) +
+                 (long long)tile * (tile + 1) / 2) * kTileCodes + tid;
 
   float o[4][kCols * 4];
 #pragma unroll
@@ -217,14 +351,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_commit();
     copy_tile<D>(vs, D, p.v + col, p.ld, k0, n, n_h, hist0, cand0);
     cp_async_commit();
-    if (tid < kBN) {
-      const int j = k0 + tid;
-      key_t[tid] = j < n ? p.times[row_of(j, n_h, hist0, cand0)] : 0;
-    } else if (tid < kBN + 127) {
+    const uint4 code = __ldg(codes + (long long)(k0 / kBN) * kTileCodes);
+    if (tid < 127) {
       // p[j - i + N - 1] for j - i in [k0 - q0 - 63, k0 - q0 + 63]
-      const int at = p.max_seq_len - 1 + k0 - q0 - 63 + (tid - kBN);
-      pos[tid - kBN] =
-          at >= 0 && at < 2 * p.max_seq_len - 1 ? p.pos_bias[at] : 0.f;
+      const int at = p.max_seq_len - 1 + k0 - q0 - 63 + tid;
+      pos[tid] = at >= 0 && at < 2 * p.max_seq_len - 1 ? p.pos_bias[at] : 0.f;
     }
     cp_async_wait<1>();
     __syncthreads();
@@ -254,21 +385,20 @@ __global__ void __launch_bounds__(kThreads, 2)
           s[r][c] = fmaf(qv[r].w, kv[c].w, s[r][c]);
         }
     }
-    // the bias, SiLU, 1/N and the mask, in registers
+    // the bias, SiLU, 1/N and the mask, in registers, by the codes
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const int i = q0 + ty + 16 * r;
-      const bool cand_i = i >= n_h;
+      const unsigned word = r == 0   ? code.x
+                            : r == 1 ? code.y
+                            : r == 2 ? code.z
+                                     : code.w;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int j = k0 + tx + 16 * c;
-        const bool in = i < n && j < n &&
-                        (cand_i ? (j < n_h || j == i) : j <= i);
+        const unsigned b = (word >> (8 * c)) & 0xffu;
         float a = 0.f;
-        if (in) {
-          const long long dt = q_t[r] - key_t[tx + 16 * c];
-          const int b = time_bucket(dt < 0 ? -dt : dt, th, p.buckets);
-          const float rab = pos[j - i - (k0 - q0) + 63] + tw[b];
+        if (b != kMasked) {
+          // p[j - i + N - 1] for i = q0 + ty + 16 r, j = k0 + tx + 16 c
+          const float rab = pos[tx + 16 * c - ty - 16 * r + 63] + tw[b];
           const float x = fmaf(s[r][c], p.alpha, rab);
           a = __fdividef(x, 1.f + __expf(-x)) * p.inv_n;
         }
@@ -328,7 +458,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// What was launched last, for hstu_attention_last_launch_info.
+// What was launched last (the build, head_dim 0, or the attention), for
+// hstu_attention_last_launch_info.
 struct Record {
   const void* fn = nullptr;
   size_t smem = 0;
@@ -358,30 +489,52 @@ int launch(const Params& p, long long blocks, cudaStream_t stream) {
 
 extern "C" {
 
-// Returns a cudaError_t (0 = launched). head_dim is 128.
+// Returns a cudaError_t (0 = launched). Writes the layout's `tiles` code
+// tiles (its users' triangles, summed) to `codes`, 16-byte aligned.
+int hstu_time_codes_launch(const int* hist_offsets, const int* cand_offsets,
+                           int users, long long hist_total,
+                           const long long* times,
+                           const long long* thresholds, int buckets,
+                           void* codes, long long tiles, void* stream) {
+  if (users <= 0 || tiles <= 0) return cudaSuccess;
+  if (buckets < 0 || buckets >= kMasked || tiles > 0x7fffffffLL ||
+      !aligned16(codes))
+    return cudaErrorInvalidValue;
+  const CodeParams p{hist_offsets, cand_offsets, users,   hist_total,
+                     times,        thresholds,   buckets, static_cast<uint4*>(codes)};
+  std::lock_guard<std::mutex> hold(g_mutex);
+  g_last = {reinterpret_cast<const void*>(hstu_time_codes_kernel), 0, 0,
+            (int)tiles};
+  hstu_time_codes_kernel<<<(unsigned)tiles, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
+// Returns a cudaError_t (0 = launched). head_dim is 128; `codes` are the
+// layout's, written by hstu_time_codes_launch.
 int hstu_attention_launch(const float* q, const float* k, const float* v,
                           long long ld, const int* hist_offsets,
                           const int* cand_offsets, int users,
-                          long long hist_total, const long long* times,
+                          long long hist_total, const void* codes,
                           const float* pos_bias, const float* time_bias,
-                          const long long* thresholds, int buckets,
-                          float* out, long long out_ld, int heads,
-                          int head_dim, int max_seq_len, int max_tiles,
-                          void* stream) {
+                          int buckets, float* out, long long out_ld,
+                          int heads, int head_dim, int max_seq_len,
+                          int max_tiles, void* stream) {
   if (users <= 0 || max_tiles <= 0) return cudaSuccess;
-  if (heads < 1 || max_seq_len < 1 || buckets < 0 || buckets >= kMaxBuckets ||
-      head_dim != 128 || ld % 4 || out_ld % 4 ||
-      !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out) ||
+  if (heads < 1 || max_seq_len < 1 || buckets < 0 || buckets >= kMasked ||
+      head_dim != 128 || ld % 4 || out_ld % 4 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(out) ||
+      !aligned16(codes) ||
       (long long)max_tiles * kBM > (long long)max_seq_len + kBM - 1)
     return cudaErrorInvalidValue;
   const long long blocks = (long long)heads * users * max_tiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const Params p{q,          k,          v,
-                 ld,         hist_offsets, cand_offsets,
-                 users,      hist_total, times,
-                 pos_bias,   time_bias,  thresholds,
-                 buckets,    out,        out_ld,
-                 heads,      max_seq_len, max_tiles,
+  const Params p{q,           k,          v,
+                 ld,          hist_offsets, cand_offsets,
+                 users,       hist_total, static_cast<const uint4*>(codes),
+                 pos_bias,    time_bias,  buckets,
+                 out,         out_ld,     heads,
+                 max_seq_len, max_tiles,
                  1.f / sqrtf((float)head_dim), 1.f / (float)max_seq_len};
   const auto s = static_cast<cudaStream_t>(stream);
   std::lock_guard<std::mutex> hold(g_mutex);
@@ -389,8 +542,8 @@ int hstu_attention_launch(const float* q, const float* k, const float* v,
 }
 
 // out[0..6] = registers per thread, resident blocks per SM, local (spill)
-// bytes per thread, static shared bytes, dynamic shared bytes, head dim,
-// blocks launched.
+// bytes per thread, static shared bytes, dynamic shared bytes, head dim
+// (0 for the build), blocks launched; of the kernel launched last.
 int hstu_attention_last_launch_info(int* out) {
   std::lock_guard<std::mutex> hold(g_mutex);
   if (!g_last.fn) return cudaErrorInvalidValue;

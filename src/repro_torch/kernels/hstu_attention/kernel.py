@@ -1,5 +1,5 @@
-"""HSTU's pointwise attention over jagged user sequences: the CUDA kernel,
-its plain version and the dispatch between them.
+"""HSTU's pointwise attention over jagged user sequences: the CUDA kernels,
+their plain versions and the dispatch between them.
 
     out_i = sum_j SiLU(alpha q_i.k_j + p[j - i + N - 1] + w[bucket(|t_i - t_j|)])
                   / N * mask(i, j) * v_j
@@ -12,12 +12,15 @@ assume a softmax and cannot compute it, and the plain version materialises
 an [n, n] score matrix a head and computes every masked pair. The kernel
 walks each query tile's key tiles up to its diagonal, skips the tiles that
 the mask leaves empty, and fuses the bias gather, SiLU, 1/N and the mask.
-It is built, bound and launched through `kernels/library.py`, at first
-use; a failed build raises.
+Each pair's time bucket and mask depend on neither the head nor the layer:
+`hstu_time_codes` codes them once a forward, one byte a pair
+(`ref.time_codes_ref` is the layout), and every layer's launch reads the
+codes. Both kernels are built, bound and launched through
+`kernels/library.py`, at first use; a failed build raises.
 
-`hstu_attention` takes the plain version (`ref.hstu_attention_ref`) for
-CPU tensors and the kernel for CUDA tensors, with no fallback between them;
-there is no backward.
+`hstu_attention` takes the plain version (`ref.hstu_attention_ref`, which
+buckets the times itself) for CPU tensors and the kernel for CUDA tensors,
+with no fallback between them; there is no backward.
 """
 from __future__ import annotations
 
@@ -27,23 +30,37 @@ import threading
 import torch
 
 from repro_torch.kernels import library
-from repro_torch.kernels.hstu_attention.ref import hstu_attention_ref
+from repro_torch.kernels.hstu_attention.ref import (MAX_BUCKETS, TILE,
+                                                    check_buckets,
+                                                    hstu_attention_ref)
 from repro_torch.tracing import span
 
-#: Launches of the CUDA kernel since the count was last set to 0; only
-#: `hstu_attention_cuda` adds to it, once a launch, under a lock.
+#: Launches of the attention kernel, and of the time codes' build, since
+#: each count was last set to 0; only `hstu_attention_cuda` and
+#: `time_codes_cuda` add to them, once a launch, under a lock. A forward
+#: builds once and launches once a layer: LAUNCHES / CODE_BUILDS is how
+#: often each code is read. CODE_TILES: the 64 x 64 tiles of codes the
+#: builds wrote.
 LAUNCHES = 0
+CODE_BUILDS = 0
+CODE_TILES = 0
 _COUNT_LOCK = threading.Lock()
 
-TILE = 64                  # kBM in csrc/hstu_attention.cu: queries a block
 HEAD_DIMS = (128,)         # the kernel's instantiations
-MAX_BUCKETS = 4095         # kMaxBuckets - 1
+TILE_BYTES = TILE * TILE   # codes of a 64 x 64 tile of pairs, one byte each
 
 
 def _count_launch() -> None:
     global LAUNCHES
     with _COUNT_LOCK:
         LAUNCHES += 1
+
+
+def _count_build(tiles: int) -> None:
+    global CODE_BUILDS, CODE_TILES
+    with _COUNT_LOCK:
+        CODE_BUILDS += 1
+        CODE_TILES += tiles
 
 
 LAUNCH_INFO_KEYS = ("registers", "blocks_per_sm", "local_bytes",
@@ -53,7 +70,8 @@ LAUNCH_INFO_KEYS = ("registers", "blocks_per_sm", "local_bytes",
 
 def last_launch_info() -> dict:
     """Registers per thread, resident blocks per SM, spill bytes and the
-    launch shape of the instantiation launched last."""
+    launch shape of the kernel launched last: the attention's
+    instantiation, or the build (head_dim 0)."""
     return library.launch_info("hstu_attention_last_launch_info",
                                LAUNCH_INFO_KEYS)
 
@@ -103,19 +121,98 @@ class JaggedLayout:
         return sum(h * (h + 1) // 2 + c * (h + 1)
                    for h, c in zip(self.history, self.candidates))
 
+    def code_tiles(self) -> int:
+        """64 x 64 tiles of time codes: the lower triangle T (T + 1) / 2
+        of each user's T = ceil(n / 64) query tiles, summed."""
+        return sum(t * (t + 1) // 2 for t in
+                   (-(-(h + c) // TILE)
+                    for h, c in zip(self.history, self.candidates)))
+
+
+def check_codes(codes, layout: JaggedLayout, device) -> None:
+    """Raise ValueError unless `codes` is the layout's code buffer: uint8,
+    contiguous, [layout.code_tiles() · TILE_BYTES], on `device`, 16-byte
+    aligned."""
+    n = layout.code_tiles() * TILE_BYTES
+    if (not isinstance(codes, torch.Tensor) or codes.shape != (n,)
+            or codes.dtype != torch.uint8 or not codes.is_contiguous()
+            or codes.device != torch.device(device)
+            or codes.data_ptr() % 16):
+        got = (f"{tuple(codes.shape)} {codes.dtype} on {codes.device}"
+               if isinstance(codes, torch.Tensor) else type(codes).__name__)
+        raise ValueError(f"codes must be the layout's contiguous, 16-byte "
+                         f"aligned uint8 [{n}] on {device} "
+                         f"(hstu_time_codes), got {got}")
+
+
+def time_codes_cuda(layout: JaggedLayout, times: torch.Tensor,
+                    thresholds: torch.Tensor) -> torch.Tensor:
+    """One launch of the build: every pair's time code of the layout.
+
+    times:       [rows] int64, contiguous, on a CUDA device
+    thresholds:  [B + 1] int64 (`ref.bucket_thresholds`), B <= MAX_BUCKETS,
+                 on the same device; the offsets too
+    returns:     [layout.code_tiles() · TILE_BYTES] uint8, laid out as
+                 `ref.time_codes_ref`
+    """
+    device = times.device
+    buckets = thresholds.shape[0] - 1 if thresholds.dim() == 1 else -1
+    for name, t, dtype, n in (
+            ("times", times, torch.int64, layout.rows),
+            ("thresholds", thresholds, torch.int64, buckets + 1),
+            ("hist_offsets", layout.hist_offsets, torch.int32,
+             layout.users + 1),
+            ("cand_offsets", layout.cand_offsets, torch.int32,
+             layout.users + 1)):
+        if (t.shape != (n,) or t.dtype != dtype or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(f"{name} must be contiguous {dtype} [{n}] on "
+                             f"{device}, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    check_buckets(buckets)
+    if not times.is_cuda:
+        raise ValueError(f"time_codes_cuda needs times on a CUDA device, got "
+                         f"{device}; on the CPU the plain attention buckets "
+                         f"the times itself")
+    tiles = layout.code_tiles()
+    codes = torch.empty(tiles * TILE_BYTES, dtype=torch.uint8, device=device)
+    if tiles == 0:
+        return codes
+    library.launch(
+        "hstu_time_codes_launch", device, layout.hist_offsets.data_ptr(),
+        layout.cand_offsets.data_ptr(), layout.users, layout.hist_total,
+        times.data_ptr(), thresholds.data_ptr(), buckets, codes.data_ptr(),
+        tiles)
+    _count_build(tiles)
+    return codes
+
+
+def hstu_time_codes(layout: JaggedLayout, times: torch.Tensor,
+                    thresholds: torch.Tensor):
+    """A forward's time codes, which each layer's `hstu_attention` takes:
+    for CUDA tensors the build's buffer, under the span `hstu.time_codes`;
+    for CPU tensors (times, thresholds) as they are, which the plain
+    attention buckets itself; an error elsewhere."""
+    if times.device.type == "cpu":
+        return times, thresholds
+    if not times.is_cuda:
+        raise ValueError(f"no HSTU time codes for tensors on {times.device}")
+    with span("hstu.time_codes"):
+        return time_codes_cuda(layout, times, thresholds)
+
 
 def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        layout: JaggedLayout, times: torch.Tensor,
-                        pos_bias: torch.Tensor, time_bias: torch.Tensor,
-                        thresholds: torch.Tensor, *, heads: int,
-                        max_seq_len: int) -> torch.Tensor:
+                        layout: JaggedLayout, codes: torch.Tensor,
+                        pos_bias: torch.Tensor, time_bias: torch.Tensor, *,
+                        heads: int, max_seq_len: int) -> torch.Tensor:
     """One launch of the CUDA kernel.
 
     q, k, v:     [rows, heads·D] float32 on a CUDA device with contiguous
                  columns and one row stride, 16-byte aligned (column blocks
                  of one buffer may share it); D in HEAD_DIMS
-    times:       [rows] int64; pos_bias [2N - 1] and time_bias [B + 1]
-                 float32; thresholds [B + 1] int64 (`ref.bucket_thresholds`);
+    codes:       the layout's time codes (`time_codes_cuda`), built with
+                 the thresholds of the same B
+    pos_bias:    [2N - 1] and time_bias [B + 1] float32, B <= MAX_BUCKETS;
                  all contiguous, on the same device
     returns:     [rows, heads·D] float32
     """
@@ -140,10 +237,8 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"than max_seq_len={max_seq_len}")
     buckets = time_bias.shape[0] - 1 if time_bias.dim() == 1 else -1
     for name, t, dtype, n in (
-            ("times", times, torch.int64, rows),
             ("pos_bias", pos_bias, torch.float32, 2 * max_seq_len - 1),
             ("time_bias", time_bias, torch.float32, buckets + 1),
-            ("thresholds", thresholds, torch.int64, buckets + 1),
             ("hist_offsets", layout.hist_offsets, torch.int32,
              layout.users + 1),
             ("cand_offsets", layout.cand_offsets, torch.int32,
@@ -153,8 +248,8 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be contiguous {dtype} [{n}] on "
                              f"{device}, got {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}")
-    if not 0 <= buckets <= MAX_BUCKETS:
-        raise ValueError(f"{buckets} time buckets; at most {MAX_BUCKETS}")
+    check_buckets(buckets)
+    check_codes(codes, layout, device)
     if any(t.data_ptr() % 16 for t in (q, k, v)) or q.stride(0) % 4:
         raise ValueError("q, k and v must be 16-byte aligned, with a row "
                          "stride a multiple of 4")
@@ -166,27 +261,30 @@ def hstu_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "hstu_attention_launch", device, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), q.stride(0), layout.hist_offsets.data_ptr(),
         layout.cand_offsets.data_ptr(), layout.users, layout.hist_total,
-        times.data_ptr(), pos_bias.data_ptr(), time_bias.data_ptr(),
-        thresholds.data_ptr(), buckets, out.data_ptr(), out.stride(0), heads,
-        width // heads, max_seq_len, tiles)
+        codes.data_ptr(), pos_bias.data_ptr(), time_bias.data_ptr(), buckets,
+        out.data_ptr(), out.stride(0), heads, width // heads, max_seq_len,
+        tiles)
     _count_launch()
     return out
 
 
 def hstu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   layout: JaggedLayout, times: torch.Tensor,
-                   pos_bias: torch.Tensor, time_bias: torch.Tensor,
-                   thresholds: torch.Tensor, *, heads: int,
+                   layout: JaggedLayout, codes, pos_bias: torch.Tensor,
+                   time_bias: torch.Tensor, *, heads: int,
                    max_seq_len: int) -> torch.Tensor:
-    """The attention of one layer, under the span `hstu.attention`: the
-    kernel for CUDA tensors, the plain version for CPU tensors, and an
-    error elsewhere."""
+    """The attention of one layer, under the span `hstu.attention`, on the
+    forward's `codes` (`hstu_time_codes`): the kernel for CUDA tensors,
+    which reads the build's buffer; the plain version for CPU tensors,
+    which buckets the (times, thresholds) it is given; an error
+    elsewhere."""
     with span("hstu.attention"):
         if q.is_cuda:
-            fn = hstu_attention_cuda
-        elif q.device.type == "cpu":
-            fn = hstu_attention_ref
-        else:
-            raise ValueError(f"no HSTU attention for tensors on {q.device}")
-        return fn(q, k, v, layout, times, pos_bias, time_bias, thresholds,
-                  heads=heads, max_seq_len=max_seq_len)
+            return hstu_attention_cuda(q, k, v, layout, codes, pos_bias,
+                                       time_bias, heads=heads,
+                                       max_seq_len=max_seq_len)
+        if q.device.type == "cpu":
+            times, thresholds = codes
+            return hstu_attention_ref(q, k, v, layout, times, pos_bias,
+                                      time_bias, thresholds, heads=heads,
+                                      max_seq_len=max_seq_len)
+        raise ValueError(f"no HSTU attention for tensors on {q.device}")

@@ -1,5 +1,6 @@
-"""The plain version of HSTU's attention (`csrc/hstu_attention.cu`), and the
-time buckets both sides share.
+"""The plain version of HSTU's attention (`csrc/hstu_attention.cu`), the
+time buckets both sides share, and the plain version of the kernel's time
+codes.
 
 Each user alone, with dense [n, n] scores a head: the scores, the relative
 bias gathered from the position and time tables, SiLU, 1/N and the mask,
@@ -17,6 +18,9 @@ import torch.nn.functional as F
 
 #: the divisor of ln|dt| in HSTU's time buckets (the reference code's 0.301)
 BUCKET_BASE = 0.301
+TILE = 64             # the kernel's kBM = kBN: queries and keys of a tile
+MASKED = 255          # the code of a pair the mask keeps out (kMasked)
+MAX_BUCKETS = MASKED - 1  # codes are one byte
 
 
 def time_bucket_of(x: float, buckets: int, base: float = BUCKET_BASE) -> int:
@@ -70,6 +74,42 @@ def attention_mask(n_h: int, m: int, device) -> torch.Tensor:
     i = torch.arange(n, device=device)[:, None]
     j = torch.arange(n, device=device)[None, :]
     return torch.where(i < n_h, j <= i, (j < n_h) | (j == i))
+
+
+def check_buckets(buckets: int) -> None:
+    """Raise ValueError unless 0 <= buckets <= MAX_BUCKETS."""
+    if not 0 <= buckets <= MAX_BUCKETS:
+        raise ValueError(f"{buckets} time buckets; at most {MAX_BUCKETS} "
+                         f"(codes are one byte, and {MASKED} marks the mask)")
+
+
+def time_codes_ref(layout, times: torch.Tensor,
+                   thresholds: torch.Tensor) -> torch.Tensor:
+    """The kernel's time codes of a layout, uint8 [code tiles · 4096] on
+    times' device: for each user of n tokens and T = ceil(n / 64), the
+    [64 T, 64 T] codes (`time_bucket` of |t_i - t_j| where
+    `attention_mask` lets the pair in, MASKED elsewhere and past n) as 64 x
+    64 tiles, the lower triangle's tile (a, b) at a (a + 1) / 2 + b after
+    the users before; inside a tile, code (ty + 16 r, tx + 16 c) at byte 16
+    (16 ty + tx) + 4 r + c."""
+    check_buckets(thresholds.shape[0] - 1)
+    device = times.device
+    out = [torch.zeros(0, dtype=torch.uint8, device=device)]
+    for rows, n_h, m in zip(user_rows(layout, device), layout.history,
+                            layout.candidates):
+        n = n_h + m
+        t = -(-n // TILE)
+        codes = torch.full((t * TILE, t * TILE), MASKED, dtype=torch.uint8,
+                           device=device)
+        tu = times[rows]
+        bucket = time_bucket((tu[:, None] - tu[None, :]).abs(), thresholds)
+        codes[:n, :n] = torch.where(attention_mask(n_h, m, device), bucket,
+                                    MASKED).to(torch.uint8)
+        # [a, r, ty, b, c, tx] -> [a, b, ty, tx, r, c]
+        tiles = codes.view(t, 4, 16, t, 4, 16).permute(0, 3, 2, 5, 1, 4)
+        a, b = torch.tril_indices(t, t, device=device)
+        out.append(tiles[a, b].reshape(-1))
+    return torch.cat(out)
 
 
 def hstu_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -64,9 +64,11 @@ SIGNATURES = {
     "dot_interaction_launch": ([
         _PTR, _PTR, _PTR, _LL, _I32, _I32, _I32, _PTR], _I32),
     "dot_interaction_last_launch_info": ([_PTR], _I32),
+    "hstu_time_codes_launch": ([
+        _PTR, _PTR, _I32, _LL, _PTR, _PTR, _I32, _PTR, _LL, _PTR], _I32),
     "hstu_attention_launch": ([
-        _PTR, _PTR, _PTR, _LL, _PTR, _PTR, _I32, _LL, _PTR, _PTR, _PTR, _PTR,
-        _I32, _PTR, _LL, _I32, _I32, _I32, _I32, _PTR], _I32),
+        _PTR, _PTR, _PTR, _LL, _PTR, _PTR, _I32, _LL, _PTR, _PTR, _PTR, _I32,
+        _PTR, _LL, _I32, _I32, _I32, _I32, _PTR], _I32),
     "hstu_attention_last_launch_info": ([_PTR], _I32),
 }
 

@@ -22,7 +22,9 @@ action table, through `EmbeddingBagCollection` on a `RaggedStageConfig` of
 the two tables with bags of one row (the ragged bag kernel on the card; a
 candidate also looks up action row 0, which is dropped). The attention is
 `kernels.hstu_attention` (the CUDA kernel on the card, its plain version on
-the CPU); the products are cuBLAS's, in float32.
+the CPU); on the card each pair's time bucket and mask are coded once a
+forward (`hstu_time_codes`) and read by every layer. The products are
+cuBLAS's, in float32.
 
 Rows of a batch: every user's history tokens, in user order, then every
 user's candidates, in user order (`kernels.hstu_attention.JaggedLayout`).
@@ -37,7 +39,8 @@ from torch import nn
 
 from repro_torch.core.embedding import EmbeddingBagCollection, RaggedStageConfig
 from repro_torch.kernels.hstu_attention import (JaggedLayout, bucket_thresholds,
-                                                hstu_attention)
+                                                hstu_attention,
+                                                hstu_time_codes)
 from repro_torch.models.layers import MLPTower
 from repro_torch.tracing import span
 from repro_torch.utils import resolve_device
@@ -112,7 +115,8 @@ class JaggedBatch:
 
 class HSTULayer(nn.Module):
     """One HSTU layer: parameters w_uvqk [d, h(2 d_v + 2 d_qk)], w_o
-    [h d_v, d], b_o [d], pos_bias [2N - 1] and time_bias [B + 1]."""
+    [h d_v, d], b_o [d], pos_bias [2N - 1] and time_bias [B + 1]. Its
+    forward takes the forward's time codes (`hstu_time_codes`)."""
 
     def __init__(self, cfg: HSTUConfig, *, generator, device):
         super().__init__()
@@ -134,16 +138,15 @@ class HSTULayer(nn.Module):
         self.pos_bias = normal((2 * cfg.max_seq_len - 1,), 0.02)
         self.time_bias = normal((cfg.time_buckets + 1,), 0.02)
 
-    def forward(self, x: torch.Tensor, layout: JaggedLayout,
-                times: torch.Tensor, thresholds: torch.Tensor):
+    def forward(self, x: torch.Tensor, layout: JaggedLayout, codes):
         cfg = self.cfg
         hv, hqk = cfg.heads * cfg.d_v, cfg.heads * cfg.d_qk
         with span("hstu.uvqk"):
             h = F.layer_norm(x, (cfg.d_model,), eps=cfg.eps)
             uvqk = F.silu(h @ self.w_uvqk, inplace=True)
         u, v, q, k = torch.split(uvqk, [hv, hv, hqk, hqk], dim=1)
-        attn = hstu_attention(q, k, v, layout, times, self.pos_bias,
-                              self.time_bias, thresholds, heads=cfg.heads,
+        attn = hstu_attention(q, k, v, layout, codes, self.pos_bias,
+                              self.time_bias, heads=cfg.heads,
                               max_seq_len=cfg.max_seq_len)
         with span("hstu.output"):
             y = F.layer_norm(attn, (hv,), eps=cfg.eps) * u
@@ -152,7 +155,8 @@ class HSTULayer(nn.Module):
 
 class HSTUEncoder(nn.Module):
     """The stack of `HSTULayer`s over a jagged batch's token rows: x [rows,
-    d] -> the last layer's states [rows, d]."""
+    d] -> the last layer's states [rows, d]. The pairs' time codes are
+    built once, before the first layer, and every layer reads them."""
 
     def __init__(self, cfg: HSTUConfig, *, generator, device):
         super().__init__()
@@ -165,8 +169,9 @@ class HSTUEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, layout: JaggedLayout,
                 times: torch.Tensor) -> torch.Tensor:
+        codes = hstu_time_codes(layout, times, self.thresholds)
         for layer in self.layers:
-            x = layer(x, layout, times, self.thresholds)
+            x = layer(x, layout, codes)
         return x
 
 

@@ -34,6 +34,16 @@ Spans, and what each is for:
     repro_torch.hstu.forward             HSTU.forward: the whole step (the
                                          embedding stage's ebc.lookup opens
                                          inside it)
+    repro_torch.hstu.time_codes          kernels.hstu_time_codes, once a
+                                         forward before the first layer, on
+                                         the card: the build of every pair's
+                                         time code (counted by the kernel's
+                                         CODE_BUILDS beside its LAUNCHES,
+                                         and the tiles written by its
+                                         CODE_TILES);
+                                         inside hstu.forward, so in
+                                         dense_ms, and outside
+                                         hstu.attention
     repro_torch.hstu.uvqk                an HSTU layer's LayerNorm, its
                                          product to U, V, Q and K and the
                                          SiLU

@@ -6,8 +6,14 @@ on seeded weights.
 
 On the CPU the attention is the plain version; the CUDA kernel
 (`csrc/hstu_attention.cu`) is held to it on the card by `chip_smoke.py`'s
-`hstu` phase and by the benchmark's `hstu-ranking.long_hist` cell."""
+`hstu` phase and by the benchmark's `hstu-ranking.long_hist` cell. The
+kernel's time codes are held here through their plain version
+(`ref.time_codes_ref`): its layout decoded by hand against the
+double-precision bucket, and an attention that reads them against the
+plain attention; the card's build is held to it byte for byte there."""
+import bisect
 import dataclasses
+import itertools
 import math
 
 import pytest
@@ -20,8 +26,11 @@ from repro_torch.kernels.hstu_attention import (JaggedLayout,
                                                 hstu_attention,
                                                 hstu_attention_cuda,
                                                 hstu_attention_ref,
-                                                time_bucket)
-from repro_torch.kernels.hstu_attention.ref import (attention_mask,
+                                                hstu_time_codes,
+                                                time_bucket, time_codes_cuda,
+                                                time_codes_ref)
+from repro_torch.kernels.hstu_attention import kernel as hstu_kernel
+from repro_torch.kernels.hstu_attention.ref import (MASKED, attention_mask,
                                                     time_bucket_of)
 from repro_torch.models.hstu import HSTU, HSTUConfig, JaggedBatch
 
@@ -113,6 +122,7 @@ def gap(got, want) -> float:
 def test_jagged_lengths_match_the_reference():
     model = make_model()
     batch = make_batch()
+    builds = (hstu_kernel.CODE_BUILDS, hstu_kernel.CODE_TILES)
     with torch.inference_mode():
         x = model.embed(batch)
         states = model.encoder(x, batch.layout(), torch.cat([
@@ -124,10 +134,15 @@ def test_jagged_lengths_match_the_reference():
     assert logits.shape == (4 * CANDIDATES,)
     assert gap(states, want_states) <= STATE_TOL
     assert gap(logits, want_logits) <= LOGIT_TOL
-    # the counters: token rows and masked-in pairs a head, this forward
+    # the counters: token rows and masked-in pairs a head, this forward;
+    # the layout's tiles of time codes, none of them built on the CPU
     assert model.tokens == 2 * sum(EVENTS) + 4 * CANDIDATES
     assert model.pairs == sum(2 * e * (2 * e + 1) // 2
                               + CANDIDATES * (2 * e + 1) for e in EVENTS)
+    tiles = [math.ceil((2 * e + CANDIDATES) / 64) for e in EVENTS]
+    assert batch.layout().code_tiles() == sum(t * (t + 1) // 2
+                                              for t in tiles) == 6
+    assert (hstu_kernel.CODE_BUILDS, hstu_kernel.CODE_TILES) == builds
 
 
 def test_a_users_logits_do_not_depend_on_the_batch():
@@ -293,18 +308,278 @@ def test_spans_nest_in_a_profiled_forward():
         assert names.count("repro_torch." + name) == 1, name
     for name in ("hstu.uvqk", "hstu.attention", "hstu.output"):
         assert names.count("repro_torch." + name) == SMALL.layers, name
+    # the plain attention buckets the times itself: no codes are built
+    assert "repro_torch.hstu.time_codes" not in names
 
 
 def test_the_kernel_refuses_cpu_tensors_and_other_devices():
     layout = JaggedLayout((2,), (1,), torch.tensor([0, 2], dtype=torch.int32),
                           torch.tensor([0, 1], dtype=torch.int32))
     x = torch.zeros((3, 128))
-    args = (layout, torch.zeros(3, dtype=torch.int64), torch.zeros(7),
-            torch.zeros(2), torch.tensor([0, 2]))
+    times, th = torch.zeros(3, dtype=torch.int64), torch.tensor([0, 2])
+    codes = time_codes_ref(layout, times, th)
+    before = (hstu_kernel.LAUNCHES, hstu_kernel.CODE_BUILDS,
+              hstu_kernel.CODE_TILES)
     with pytest.raises(ValueError, match="CPU tensors go to"):
-        hstu_attention_cuda(x, x, x, *args, heads=1, max_seq_len=4)
+        hstu_attention_cuda(x, x, x, layout, codes, torch.zeros(7),
+                            torch.zeros(2), heads=1, max_seq_len=4)
     m = torch.zeros((3, 128), device="meta")
     with pytest.raises(ValueError, match="no HSTU attention"):
-        hstu_attention(m, m, m, *args, heads=1, max_seq_len=4)
+        hstu_attention(m, m, m, layout, codes, torch.zeros(7),
+                       torch.zeros(2), heads=1, max_seq_len=4)
     with pytest.raises(ValueError, match="histories"):
         JaggedLayout((1, 2), (1,), layout.hist_offsets, layout.cand_offsets)
+    # the codes: on the CPU the times and thresholds as they are, which
+    # the plain attention buckets; the build needs the card
+    got = hstu_time_codes(layout, times, th)
+    assert got[0] is times and got[1] is th
+    with pytest.raises(ValueError, match="no HSTU time codes"):
+        hstu_time_codes(layout, times.to("meta"), th.to("meta"))
+    with pytest.raises(ValueError, match="needs times on a CUDA device"):
+        time_codes_cuda(layout, times, th)
+    assert (hstu_kernel.LAUNCHES, hstu_kernel.CODE_BUILDS,
+            hstu_kernel.CODE_TILES) == before
+
+
+# Layouts (history tokens, candidates a user) of the time-code tests:
+# histories that are not a multiple of 64, 0 candidates, 0 history, one
+# user, users of 1 token, and one user whose times put |dt| on every
+# threshold and one either side ("thresholds", built per bucket count).
+CODE_LAYOUTS = {
+    "ragged": ((70, 1, 130), (5, 0, 3)),
+    "no_candidates": ((100,), (0,)),
+    "no_history": ((0,), (7,)),
+    "single_user": ((64,), (64,)),
+    "one_token_users": ((1, 0, 1, 2), (0, 1, 1, 0)),
+    "thresholds": None,
+}
+
+
+def code_case(name: str, buckets: int, seed: int = 0):
+    """(layout, times, thresholds) of a CODE_LAYOUTS entry. Times are
+    uniform over 1e7 s, except in "thresholds": one user whose history
+    rises 0, th[b] - 1, th[b], th[b] + 1 (b = 1..B), then falls back, so
+    that every pair with token 0 and its mirror give those |dt| both
+    ways, and 2 candidates at th[B] + 5."""
+    th = bucket_thresholds(buckets)
+    gen = torch.Generator().manual_seed(seed)
+    if name == "thresholds":
+        rise = [0] + [th[b] + d for b in range(1, buckets + 1)
+                      for d in (-1, 0, 1)]
+        hist = rise + rise[::-1]
+        history, candidates = (len(hist),), (2,)
+        times = torch.tensor(hist + [th[buckets] + 5] * 2)
+    else:
+        history, candidates = CODE_LAYOUTS[name]
+        times = torch.randint(0, 10 ** 7, (sum(history) + sum(candidates),),
+                              generator=gen)
+    layout = JaggedLayout(
+        history, candidates,
+        torch.tensor([0, *itertools.accumulate(history)], dtype=torch.int32),
+        torch.tensor([0, *itertools.accumulate(candidates)],
+                     dtype=torch.int32))
+    return layout, times, torch.tensor(th)
+
+
+def decode(codes: torch.Tensor, layout: JaggedLayout) -> list:
+    """Each user's [64 T, 64 T] codes read back from the buffer by the
+    layout's rule (pairs above the tile diagonal, which are not stored,
+    read -1); and the count of bytes read, each once."""
+    out, base, seen = [], 0, torch.zeros(codes.numel(), dtype=torch.int64)
+    for n_h, m in zip(layout.history, layout.candidates):
+        t = math.ceil((n_h + m) / 64)
+        i, j = torch.meshgrid(torch.arange(64 * t), torch.arange(64 * t),
+                              indexing="ij")
+        a, b = i // 64, j // 64
+        stored = b <= a
+        at = ((base + a * (a + 1) // 2 + b) * 4096
+              + 16 * (16 * (i % 16) + j % 16) + 4 * (i % 64 // 16)
+              + j % 64 // 16)
+        user = torch.full((64 * t, 64 * t), -1, dtype=torch.int64)
+        user[stored] = codes[at[stored]].long()
+        seen.index_add_(0, at[stored], torch.ones_like(at[stored]))
+        out.append(user)
+        base += t * (t + 1) // 2
+    assert bool((seen == 1).all()), "a byte read twice or never"
+    return out
+
+
+def user_slices(layout: JaggedLayout) -> list:
+    return [torch.cat([torch.arange(h0, h0 + n_h),
+                       torch.arange(layout.hist_total + c0,
+                                    layout.hist_total + c0 + m)])
+            for n_h, m, h0, c0 in zip(
+                layout.history, layout.candidates,
+                itertools.accumulate(layout.history, initial=0),
+                itertools.accumulate(layout.candidates, initial=0))]
+
+
+@pytest.mark.parametrize("buckets", [128, 3])
+@pytest.mark.parametrize("name", list(CODE_LAYOUTS))
+def test_time_codes_are_each_pairs_bucket_or_the_mask(name, buckets):
+    layout, times, th = code_case(name, buckets)
+    codes = time_codes_ref(layout, times, th)
+    assert codes.dtype == torch.uint8
+    assert codes.numel() == layout.code_tiles() * 4096
+    edges = th.tolist()
+
+    def bucket(x):
+        # beyond 2**53 a double no longer tells integers apart: there the
+        # thresholds alone define the bucket
+        return (time_bucket_of(x, buckets) if x < 2 ** 53
+                else bisect.bisect_right(edges, x) - 1)
+
+    for rows, user, n_h, m in zip(user_slices(layout), decode(codes, layout),
+                                  layout.history, layout.candidates):
+        n = n_h + m
+        t = times[rows].tolist()
+        for i in range(user.shape[0]):
+            for j in range(i // 64 * 64 + 64):
+                in_mask = i < n and j < n and (j <= i if i < n_h
+                                               else j < n_h or j == i)
+                want = bucket(abs(t[i] - t[j])) if in_mask else MASKED
+                assert user[i, j] == want, (i, j)
+    if name == "thresholds":       # every bucket no integer skips is met
+        met = {b for b in range(buckets + 1)
+               if b == buckets or edges[b] < edges[b + 1]}
+        assert set(codes.tolist()) == met | {MASKED}
+
+
+def attention_from_codes(q, k, v, layout, codes, pos_bias, time_bias, *,
+                         heads, max_seq_len):
+    """The attention as the kernel computes it from the codes: code MASKED
+    gives weight 0, any other c the bias p[j - i + N - 1] + w[c]."""
+    out = torch.zeros((q.shape[0], v.shape[1]))
+    d = q.shape[1] // heads
+    for rows, user in zip(user_slices(layout), decode(codes, layout)):
+        n = rows.numel()
+        code = user[:n, :n]
+        qu, ku, vu = (x[rows].view(n, heads, -1).transpose(0, 1)
+                      for x in (q, k, v))
+        pos = torch.arange(n)
+        rab = (pos_bias[pos[None, :] - pos[:, None] + max_seq_len - 1]
+               + time_bias[code.clamp(max=time_bias.numel() - 1)])
+        a = torch.nn.functional.silu(d ** -0.5 * (qu @ ku.transpose(1, 2))
+                                     + rab) / max_seq_len
+        a = a * ((code >= 0) & (code != MASKED))   # -1: above the tiles
+        out[rows] = (a @ vu).transpose(0, 1).reshape(n, -1)
+    return out
+
+
+@pytest.mark.parametrize("buckets", [128, 3])
+@pytest.mark.parametrize("name", list(CODE_LAYOUTS))
+def test_attention_read_from_codes_matches_the_plain_attention(name,
+                                                               buckets):
+    layout, times, th = code_case(name, buckets, seed=1)
+    gen = torch.Generator().manual_seed(2)
+    heads, d, big_n = 2, 8, max(layout.longest(), 1)
+    q, k, v = torch.randn((3, layout.rows, heads * d), generator=gen)
+    pos = torch.randn(2 * big_n - 1, generator=gen)
+    tw = torch.randn(buckets + 1, generator=gen)
+    want = hstu_attention_ref(q, k, v, layout, times, pos, tw, th,
+                              heads=heads, max_seq_len=big_n)
+    got = attention_from_codes(q, k, v, layout,
+                               time_codes_ref(layout, times, th), pos, tw,
+                               heads=heads, max_seq_len=big_n)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("name", list(CODE_LAYOUTS))
+def test_code_tiles_are_the_users_triangles(name):
+    layout, _, _ = code_case(name, 3)
+    tiles = [math.ceil((h + c) / 64)
+             for h, c in zip(layout.history, layout.candidates)]
+    assert layout.code_tiles() == sum(t * (t + 1) // 2 for t in tiles)
+    assert layout.code_tiles() == {
+        "ragged": 3 + 1 + 6, "no_candidates": 3, "no_history": 1,
+        "single_user": 3, "one_token_users": 4, "thresholds": 1}[name]
+
+
+def _bad_codes(case, layout, device="cpu"):
+    """A code buffer that is not the layout's, made on `device` (a copy to
+    another device would make a strided or unaligned view whole again)."""
+    n = layout.code_tiles() * 4096
+    good = torch.zeros(n, dtype=torch.uint8, device=device)
+    return {"short": good[:-1],
+            "long": torch.zeros(n + 16, dtype=torch.uint8, device=device),
+            "int8": good.to(torch.int8), "int32": good.to(torch.int32),
+            "strided": torch.zeros(2 * n, dtype=torch.uint8,
+                                   device=device)[::2],
+            "unaligned": torch.zeros(n + 1, dtype=torch.uint8,
+                                     device=device)[1:],
+            "device": good.to("meta"), "none": None}[case]
+
+
+@pytest.mark.parametrize("case", ["short", "long", "int8", "int32",
+                                  "strided", "unaligned", "device", "none"])
+def test_a_code_buffer_not_the_layouts_is_refused(case):
+    layout, times, th = code_case("ragged", 128)
+    hstu_kernel.check_codes(time_codes_ref(layout, times, th), layout, "cpu")
+    with pytest.raises(ValueError, match="codes must be the layout's"):
+        hstu_kernel.check_codes(_bad_codes(case, layout), layout, "cpu")
+
+
+@pytest.mark.parametrize("buckets", [255, 1000])
+def test_more_than_254_buckets_are_refused(buckets):
+    assert hstu_kernel.MAX_BUCKETS == 254
+    layout, times, _ = code_case("ragged", 3)
+    # rising thresholds of any count (the reference base passes 2**63 at
+    # 145 buckets)
+    th = torch.arange(buckets + 1) * 1000
+    with pytest.raises(ValueError, match="at most 254"):
+        time_codes_ref(layout, times, th)
+    with pytest.raises(ValueError, match="at most 254"):
+        time_codes_cuda(layout, times, th)
+    codes = time_codes_ref(layout, times, th[:255])   # 254: accepted
+    assert int(codes[codes != MASKED].max()) <= 254
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: this test runs the kernels on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["short", "int8", "strided", "unaligned",
+                                  "cpu", "buckets"])
+def test_the_kernel_refuses_codes_not_the_layouts_on_the_card(case,
+                                                              cuda_device):
+    layout, times, th = code_case("ragged", 128)
+    layout = JaggedLayout(layout.history, layout.candidates,
+                          layout.hist_offsets.to(cuda_device),
+                          layout.cand_offsets.to(cuda_device))
+    x = torch.zeros((layout.rows, 128), device=cuda_device)
+    codes = time_codes_cuda(layout, times.to(cuda_device),
+                            th.to(cuda_device))
+    tw = torch.zeros(129, device=cuda_device)
+    if case == "cpu":
+        codes = codes.cpu()
+    elif case == "buckets":
+        tw = torch.zeros(256, device=cuda_device)
+    else:
+        codes = _bad_codes(case, layout, cuda_device)
+    before = hstu_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="codes must be|at most 254"):
+        hstu_attention_cuda(x, x, x, layout, codes,
+                            torch.zeros(2 * 200 - 1, device=cuda_device), tw,
+                            heads=1, max_seq_len=200)
+    assert hstu_kernel.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buckets", [128, 3])
+@pytest.mark.parametrize("name", list(CODE_LAYOUTS))
+def test_the_build_writes_time_codes_ref_on_the_card(name, buckets,
+                                                     cuda_device):
+    layout, times, th = code_case(name, buckets)
+    want = time_codes_ref(layout, times, th)
+    layout = JaggedLayout(layout.history, layout.candidates,
+                          layout.hist_offsets.to(cuda_device),
+                          layout.cand_offsets.to(cuda_device))
+    before = (hstu_kernel.CODE_BUILDS, hstu_kernel.CODE_TILES)
+    got = hstu_time_codes(layout, times.to(cuda_device), th.to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+    assert (hstu_kernel.CODE_BUILDS, hstu_kernel.CODE_TILES) == (
+        before[0] + 1, before[1] + layout.code_tiles())
