@@ -116,6 +116,22 @@ and the script exits non-zero:
                   Registers, spill and blocks per SM; one layer of the
                   kernel timed on the mixed batch against its FLOP bound,
                   and the code build timed apart
+  4f. hstu_retrieval  the exact top-K scan (`kernels/mips_topk`) vs its
+                  plain version (`mips_topk_ref`, the same fmaf steps in
+                  float64) on the card, ids and scores equal: rows one
+                  short of the scan's 512-row tile, a tile, one past, k = 1,
+                  k = rows, k = 1,024, 16 and 32 queries held, tied rows;
+                  then hstu-retrieval at full width (the 50 M-row item
+                  table, 51.2 GB) through HSTU.retrieve on the cell's 16
+                  users: 2 scan launches and 50 M rows counted, 8
+                  attention launches and 1 code build, hstu.query then
+                  hstu.mips inside hstu.retrieve, unit queries, ids and
+                  scores equal to the plain scan of the same queries and
+                  within 1e-6 of the largest score of an f32 product; the kernel at the cell's
+                  shape on random queries against the plain scan, its
+                  time (scan and merge apart) beside the byte bound and
+                  the library path (chunked torch.mm on widened rows,
+                  then torch.topk)
   5. serve        dlrm_production at full width through ServingSession on
                   the `device` backend: 3 batches of 2048 med_hot queries;
                   the bag and interaction kernels launch once per forward;
@@ -233,7 +249,7 @@ and the script exits non-zero:
 The last line is {"ok": true, "device": {...}}. There is no CPU branch.
 `--stop-after PHASE` ends the run after that phase (build, lm_zoo,
 lm_serve, spmd_lm_train, parity_fused, interaction, ragged, towers, hstu,
-kernel_time,
+hstu_retrieval, kernel_time,
 kernel_diag,
 replay_device, replay_tiered, quickstart, spmd_dlrm, spmd_dryrun,
 serve_sharded, serve_pool, replay_tenants; a short first call for a new
@@ -283,6 +299,8 @@ from repro_torch.kernels.hstu_attention import kernel as hstu_kernel  # noqa: E4
 from repro_torch.kernels.hstu_attention.ref import (  # noqa: E402
     bucket_thresholds, hstu_attention_ref, time_codes_ref)
 from repro_torch.kernels.interaction import kernel as interaction  # noqa: E402
+from repro_torch.kernels.mips_topk import kernel as mips_kernel  # noqa: E402
+from repro_torch.kernels.mips_topk.ref import mips_topk_ref  # noqa: E402
 from repro_torch.models import (DLRM, abstract_params, build_model,  # noqa: E402
                                 build_plan, model_flops)
 from repro_torch.models import moe as lm_moe  # noqa: E402
@@ -1896,6 +1914,241 @@ def ragged_kernel_row(ragged: dict) -> dict:
         full["plain_ms"], full["bound_ms"], "bytes", full["library_ms"],
         full, max_err_over_bound=max(ragged["max_err_over_bound"],
                                      full["max_err_over_bound"]))
+
+
+RETRIEVAL_CFG = get_config("hstu-retrieval")
+RETRIEVAL_EVENTS = tuple(round(64 * 16 ** (k / 15)) for k in range(16))
+# (users, rows, d, k): rows one short of the scan's tile (1,024 rows for
+# 16 queries held, 512 for 32), a tile, one past, k = 1, k = rows and the
+# largest k, 16 and 32 queries held
+MIPS_CASES = ((1, 1, 16, 1), (3, 1023, 32, 16), (16, 1024, 512, 256),
+              (16, 1025, 512, 256), (17, 511, 96, 100), (32, 513, 512, 1),
+              (32, 5000, 512, 256), (5, 300, 32, 300),
+              (16, 1_000_003, 512, 1024))
+MIPS_LIBRARY_ROWS = 1 << 21   # rows the library path widens at a time
+MIPS_SCORE_RTOL = 1e-6        # the kernel's scores against an f32 product,
+#                               over the largest
+
+
+def _mips_inputs(gen, users, rows, dim):
+    """Unit queries and a bf16 corpus drawn as the benchmark draws rows
+    (N(0, 1/d)), rows 0 copied to 3 rows in the middle: ties."""
+    queries = F.normalize(torch.randn((users, dim), generator=gen,
+                                      device="cuda"), dim=1)
+    corpus = (torch.randn((rows, dim), generator=gen, device="cuda")
+              / dim ** 0.5).to(torch.bfloat16)
+    corpus[rows // 2:rows // 2 + 3] = corpus[0]
+    return queries, corpus
+
+
+def _mips_check(failed, name, queries, corpus, k) -> dict:
+    """The kernel against `mips_topk_ref` (the same scores, bit for bit):
+    ids and scores equal, two launches and the rows counted."""
+    before = (mips_kernel.LAUNCHES, mips_kernel.ROWS_SCANNED)
+    ids, scores = mips_kernel.mips_topk(queries, corpus, k)
+    torch.cuda.synchronize()
+    counted = (mips_kernel.LAUNCHES - before[0],
+               mips_kernel.ROWS_SCANNED - before[1])
+    t0 = time.perf_counter()
+    want_ids, want_scores = mips_topk_ref(queries, corpus, k)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    ids_equal = torch.equal(ids, want_ids)
+    scores_equal = torch.equal(scores, want_scores)
+    expect(failed, ids_equal, f"{name}: ids differ from mips_topk_ref "
+           f"({int((ids != want_ids).sum())} of {ids.numel()})")
+    expect(failed, scores_equal, f"{name}: scores differ from "
+           f"mips_topk_ref")
+    expect(failed, counted == (2, corpus.shape[0]),
+           f"{name}: (launches, rows) {counted}")
+    info = mips_kernel.last_launch_info()
+    return {"case": name, "users": queries.shape[0],
+            "rows": corpus.shape[0], "dim": corpus.shape[1], "k": k,
+            "ids_equal": ids_equal, "scores_equal": scores_equal,
+            "launches": counted[0], "plain_s": plain_s,
+            "max_abs_err": float((scores - want_scores).abs().max()), **info}
+
+
+def _mips_library(queries, corpus, k):
+    """The library path: rows widened to f32 in chunks, `torch.mm`, then
+    `torch.topk` over each chunk's scores and the running K."""
+    best_s = best_i = None
+    for r0 in range(0, corpus.shape[0], MIPS_LIBRARY_ROWS):
+        s = queries @ corpus[r0:r0 + MIPS_LIBRARY_ROWS].float().T
+        v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
+        i = i + r0
+        if best_s is not None:
+            v, j = torch.topk(torch.cat([best_s, v], 1), k, dim=1)
+            i = torch.cat([best_i, i], 1).gather(1, j)
+        best_s, best_i = v, i
+    return best_i, best_s
+
+
+def _mips_scan_merge_ms(fn, reps: int = 3) -> dict:
+    """Device ms a launch of the scan and of the merge apart, averaged over
+    the launches the profiler recorded in `reps` calls (it may drop one),
+    or the profiler's error."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except Exception as exc:    # the profiler is untried on that machine
+        return {"profiler": repr(exc)}
+    out = {}
+    for key, kern in (("scan_ms", "mips_scan_kernel"),
+                      ("merge_ms", "mips_merge_kernel")):
+        found = [ev for ev in prof.key_averages() if kern in ev.key]
+        launches = sum(ev.count for ev in found)
+        out[key] = (sum(ev.device_time_total for ev in found) / 1e3 / launches
+                    if launches else None)
+    return out
+
+
+def _retrieval_check(failed) -> dict:
+    """hstu-retrieval at full width through HSTU.retrieve (the 50 M-row
+    item table, 51.2 GB): the cell's 16 users of 64 to 1,024 engagements;
+    two scan launches, 50 M rows counted, one attention launch a layer and
+    one code build; `hstu.query` then `hstu.mips` once each inside
+    `hstu.retrieve`; the queries of unit norm; ids and scores equal to the
+    plain scan of the same queries, and the scores within MIPS_SCORE_RTOL
+    of the largest score of an f32 product. Then the kernel at the cell's shape on random
+    queries against the plain scan, and timed beside the library path."""
+    cfg = RETRIEVAL_CFG
+    model = hstu_model.HSTU(cfg, device="cuda", seed=3).eval()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    events = RETRIEVAL_EVENTS
+    num_e, users = sum(events), len(events)
+    batch = hstu_model.JaggedBatch(
+        events=events, candidates=(0,) * users,
+        event_offsets=torch.tensor([0, *np.cumsum(events)],
+                                   dtype=torch.int32, device="cuda"),
+        candidate_offsets=torch.zeros(users + 1, dtype=torch.int32,
+                                      device="cuda"),
+        item_ids=torch.randint(0, cfg.item_rows, (num_e,), generator=gen,
+                               device="cuda", dtype=torch.int32),
+        action_ids=torch.randint(0, cfg.action_rows, (num_e,),
+                                 generator=gen, device="cuda",
+                                 dtype=torch.int32),
+        timestamps=1_700_000_000 + torch.arange(num_e, device="cuda") * 60)
+    items = model.ebc.tables[:cfg.item_rows]
+    k = cfg.retrieve_k
+    with torch.inference_mode():
+        before = (mips_kernel.LAUNCHES, mips_kernel.ROWS_SCANNED,
+                  hstu_kernel.LAUNCHES, hstu_kernel.CODE_BUILDS)
+        model.tokens = model.pairs = model.queries = 0
+        torch.cuda.reset_peak_memory_stats()
+        ids, scores, queries = model.retrieve(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counted = (mips_kernel.LAUNCHES - before[0],
+                   mips_kernel.ROWS_SCANNED - before[1],
+                   hstu_kernel.LAUNCHES - before[2],
+                   hstu_kernel.CODE_BUILDS - before[3])
+        model_counted = (model.tokens, model.queries)
+        step_ms = _hstu_timed(lambda: model.retrieve(batch), iters=5)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            model.retrieve(batch)
+            torch.cuda.synchronize()
+        ranges = {}
+        for ev in prof.events():
+            if ev.name.startswith("repro_torch.hstu."):
+                ranges.setdefault(ev.name[len("repro_torch.hstu."):],
+                                  []).append((ev.time_range.start,
+                                              ev.time_range.end))
+        (r0, r1), = ranges.get("retrieve", [(0, 0)])
+        query, mips = ranges.get("query", []), ranges.get("mips", [])
+        span_ok = (len(query) == 1 and len(mips) == 1
+                   and r0 <= query[0][0] <= query[0][1] <= mips[0][0]
+                   <= mips[0][1] <= r1)
+        t0 = time.perf_counter()
+        want_ids, want_scores = mips_topk_ref(queries, items, k)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        f32 = torch.bmm(items[ids.long()].float(), queries[:, :, None])[..., 0]
+        f32_gap = float((scores - f32).abs().max() / f32.abs().max())
+    norm_gap = float((queries.norm(dim=1) - 1).abs().max())
+    expect(failed, counted == (2, cfg.item_rows, cfg.layers, 1),
+           f"retrieve: (scan launches, rows, attention launches, code "
+           f"builds) {counted}")
+    expect(failed, model_counted == (2 * num_e, users),
+           f"retrieve: tokens, queries {model_counted}")
+    expect(failed, span_ok, "retrieve: hstu.query and hstu.mips are not "
+           "one span each, in order, inside hstu.retrieve")
+    expect(failed, norm_gap <= 1e-6, f"retrieve: |q| - 1 = {norm_gap}")
+    expect(failed, torch.equal(ids, want_ids) and torch.equal(scores,
+                                                              want_scores),
+           "retrieve: ids or scores differ from mips_topk_ref's scan")
+    expect(failed, f32_gap <= MIPS_SCORE_RTOL,
+           f"retrieve: scores {f32_gap:.3e} from an f32 product")
+    # the kernel at the cell's shape on random unit queries, timed
+    qgen = torch.Generator(device="cuda").manual_seed(17)
+    rand_q = F.normalize(torch.randn((users, cfg.d_model), generator=qgen,
+                                     device="cuda"), dim=1)
+    cell = _mips_check(failed, "cell_shape", rand_q, items, k)
+    kernel_ms = _hstu_timed(lambda: mips_kernel.mips_topk(rand_q, items, k),
+                            iters=10)
+    split = _mips_scan_merge_ms(lambda: mips_kernel.mips_topk(rand_q, items,
+                                                              k))
+    library_ms = _hstu_timed(lambda: _mips_library(rand_q, items, k),
+                             iters=2)
+    lib_ids, _ = _mips_library(rand_q, items, k)
+    kernel_ids, _ = mips_kernel.mips_topk(rand_q, items, k)
+    overlap = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(
+        lib_ids.tolist(), kernel_ids.tolist())]))
+    nbytes = cfg.item_rows * cfg.d_model * 2 + users * cfg.d_model * 4 \
+        + users * k * 8
+    bound_ms = nbytes / HBM_BW * 1e3
+    del model, items
+    torch.cuda.empty_cache()
+    return {"launches": counted[0], "rows_scanned": counted[1],
+            "attention_launches": counted[2], "code_builds": counted[3],
+            "tokens": 2 * num_e, "queries": users, "spans_nest": span_ok,
+            "query_norm_gap": norm_gap, "f32_score_gap": f32_gap,
+            "retrieve_ms": step_ms, "peak_bytes": int(peak),
+            "plain_s": plain_s, "cell_shape": cell,
+            "timed": {"ms": kernel_ms, **split, "library_ms": library_ms,
+                      "library_overlap": overlap, "plain_ms": 1e3 * plain_s,
+                      "bound_ms": bound_ms, "bytes": nbytes,
+                      "bound_by": "bytes",
+                      "fraction_of_bound": bound_ms / kernel_ms,
+                      **mips_kernel.last_launch_info()}}
+
+
+def phase_hstu_retrieval() -> dict:
+    """Hold the exact top-K scan (`csrc/mips_topk.cu`) to its plain
+    version on the card, at block edges and at the cell's shape; then run
+    hstu-retrieval through `HSTU.retrieve` at full width."""
+    failed, cases = [], []
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for users, rows, dim, k in MIPS_CASES:
+        queries, corpus = _mips_inputs(gen, users, rows, dim)
+        cases.append(_mips_check(failed, f"u{users}_r{rows}_d{dim}_k{k}",
+                                 queries, corpus, k))
+        del queries, corpus
+    retrieval = _retrieval_check(failed)
+    torch.cuda.empty_cache()
+    return {"cases": cases, "retrieval": retrieval,
+            "max_abs_err": max(c["max_abs_err"] for c in
+                               cases + [retrieval["cell_shape"]]),
+            "failed": failed}
+
+
+def mips_kernel_row(retrieval: dict) -> dict:
+    """The top-K scan's row of the `kernels` line, from the
+    `hstu_retrieval` phase, at the cell's shape (16 queries, 50 M rows,
+    K = 256); its scores equal the plain scan's bit for bit."""
+    r = retrieval["retrieval"]
+    t = r["timed"]
+    return kernel_row(
+        "mips_topk", "src/repro_torch/kernels/mips_topk/csrc/mips_topk.cu",
+        None, r["launches"], retrieval["max_abs_err"], t["ms"],
+        t["plain_ms"], t["bound_ms"], t["bound_by"], t["library_ms"], t,
+        scan_ms=t.get("scan_ms"), merge_ms=t.get("merge_ms"))
 
 
 def host_available_bytes() -> int:
@@ -4957,6 +5210,15 @@ def main() -> int:
     if stop("hstu"):
         return 0
 
+    # 4f. hstu_retrieval: the exact top-K scan, and hstu-retrieval's step
+    t0 = time.perf_counter()
+    retrieval = phase_hstu_retrieval()
+    emit("hstu_retrieval", **retrieval, seconds=time.perf_counter() - t0)
+    check(not retrieval["failed"],
+          f"hstu_retrieval: {retrieval['failed']}")
+    if stop("hstu_retrieval"):
+        return 0
+
     # 5. serve
     t0 = time.perf_counter()
     # shard_pad_tables pads 250 -> 256 tables for a 256-device slice; one
@@ -5265,7 +5527,8 @@ def main() -> int:
             inter["timed"]["serve"]["bound_by"],
             inter["timed"]["serve"]["library_ms"], inter["timed"]["serve"],
             benchmark_shape=inter["timed"]["benchmark"]),
-        ragged_kernel_row(ragged), *hstu_kernel_rows(hstu)]}),
+        ragged_kernel_row(ragged), *hstu_kernel_rows(hstu),
+        mips_kernel_row(retrieval)]}),
           flush=True)
     emit("done", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)

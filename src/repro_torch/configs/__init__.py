@@ -2,8 +2,8 @@
 
 The ten LM architectures (shapes only, copied value for value from the
 JAX package's configs with their `source` tags), `dlrm-production`,
-MLPerf's `dlrm-dcnv2` and `hstu-ranking` (the port's only: the JAX package
-has no ragged tables, cross network or HSTU).
+MLPerf's `dlrm-dcnv2`, `hstu-ranking` and `hstu-retrieval` (the port's
+only: the JAX package has no ragged tables, cross network or HSTU).
 """
 from __future__ import annotations
 
@@ -28,7 +28,8 @@ _ARCH_MODULES = {
 LM_ARCHS = tuple(_ARCH_MODULES)
 _RECSYS_MODULES = {"dlrm-production": "dlrm_production",
                    "dlrm-dcnv2": "dlrm_dcnv2",
-                   "hstu-ranking": "hstu_ranking"}
+                   "hstu-ranking": "hstu_ranking",
+                   "hstu-retrieval": "hstu_retrieval"}
 ALL_ARCHS = LM_ARCHS + tuple(_RECSYS_MODULES)
 
 

@@ -32,7 +32,8 @@ _BAG = _KERNELS / "embedding_bag" / "csrc"
 SOURCES = (_BAG / "embedding_bag.cu", _BAG / "ragged_bag.cu",
            _BAG / "fused_lookup.cu",
            _KERNELS / "interaction" / "csrc" / "dot_interaction.cu",
-           _KERNELS / "hstu_attention" / "csrc" / "hstu_attention.cu")
+           _KERNELS / "hstu_attention" / "csrc" / "hstu_attention.cu",
+           _KERNELS / "mips_topk" / "csrc" / "mips_topk.cu")
 HEADERS = (_BAG / "bag_common.cuh",)
 BUILD_DIR = _KERNELS.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -70,6 +71,10 @@ SIGNATURES = {
         _PTR, _PTR, _PTR, _LL, _PTR, _PTR, _I32, _LL, _PTR, _PTR, _PTR, _I32,
         _PTR, _LL, _I32, _I32, _I32, _I32, _PTR], _I32),
     "hstu_attention_last_launch_info": ([_PTR], _I32),
+    "mips_topk_launch": ([
+        _PTR, _I32, _I32, _PTR, _LL, _I32, _PTR, _PTR, _I32, _PTR, _PTR,
+        _PTR], _I32),
+    "mips_topk_last_launch_info": ([_PTR], _I32),
 }
 
 # the first launch builds and loads the library: one thread does it

@@ -28,6 +28,14 @@ cuBLAS's, in float32.
 
 Rows of a batch: every user's history tokens, in user order, then every
 user's candidates, in user order (`kernels.hstu_attention.JaggedLayout`).
+
+Retrieval (§2.1; the reference code's public experiments; config
+`hstu-retrieval`): a batch of histories alone goes through the same
+encoder, each user's last action token's state, L2-normalised, is the
+query, and `HSTU.retrieve` returns the K item rows of largest dot product
+with it, scanned in place in the embedding stage's table by
+`kernels.mips_topk` (the CUDA kernel on the card, its plain version on the
+CPU). A retrieval configuration has no task MLP.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from repro_torch.core.embedding import EmbeddingBagCollection, RaggedStageConfig
 from repro_torch.kernels.hstu_attention import (JaggedLayout, bucket_thresholds,
                                                 hstu_attention,
                                                 hstu_time_codes)
+from repro_torch.kernels.mips_topk import mips_topk
 from repro_torch.models.layers import MLPTower
 from repro_torch.tracing import span
 from repro_torch.utils import resolve_device
@@ -48,7 +57,10 @@ from repro_torch.utils import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class HSTUConfig:
-    """HSTU's widths; `configs/hstu_ranking.py` holds the registered ones."""
+    """HSTU's widths; `configs/hstu_ranking.py` and
+    `configs/hstu_retrieval.py` hold the registered ones. A ranking
+    configuration has a task MLP ending in one logit; a retrieval one has
+    none (`task_mlp` empty) and a `retrieve_k`."""
 
     d_model: int
     heads: int
@@ -62,10 +74,14 @@ class HSTUConfig:
     action_rows: int
     table_dtype: str
     eps: float                     # both LayerNorms
+    retrieve_k: int = 0            # item rows a user retrieves; 0: ranking
 
     def __post_init__(self):
-        if self.task_mlp[-1] != 1:
+        if self.task_mlp and self.task_mlp[-1] != 1:
             raise ValueError("the task MLP ends in one logit")
+        if bool(self.task_mlp) == bool(self.retrieve_k):
+            raise ValueError("a task MLP (ranking) or a retrieve_k "
+                             "(retrieval), one of them")
 
     @property
     def uvqk_width(self) -> int:
@@ -179,11 +195,13 @@ class HSTU(nn.Module):
     """`HSTU(cfg, device=..., seed=...)` draws random weights on `device`;
     `tables=` hands the embedding stage existing tables ([item_rows +
     action_rows, d] in `table_dtype`: the items, then the actions).
-    Submodules: `ebc`, `encoder` and `head` (the task MLP).
+    Submodules: `ebc`, `encoder` and `head` (the task MLP; None in a
+    retrieval configuration, which calls `retrieve` in place of `forward`).
 
     Counters, as the kernels count their launches (set them to 0 to
     restart): `tokens` and `pairs`, the token rows and the (query, key)
-    pairs a head that the mask lets in, summed over every forward."""
+    pairs a head that the mask lets in, summed over every forward and
+    retrieval; `queries`, the users `retrieve` has scanned for."""
 
     def __init__(self, cfg: HSTUConfig, *, device="cuda", seed: int = 0,
                  tables: torch.Tensor | None = None):
@@ -195,10 +213,12 @@ class HSTU(nn.Module):
         self.ebc = EmbeddingBagCollection(cfg.stage(), device=device,
                                           generator=gen, tables=tables)
         self.encoder = HSTUEncoder(cfg, generator=gen, device=device)
-        self.head = MLPTower((cfg.d_model, *cfg.task_mlp), torch.float32,
-                             generator=gen, device=device)
+        self.head = (MLPTower((cfg.d_model, *cfg.task_mlp), torch.float32,
+                              generator=gen, device=device)
+                     if cfg.task_mlp else None)
         self.tokens = 0
         self.pairs = 0
+        self.queries = 0
 
     def embed(self, batch: JaggedBatch) -> torch.Tensor:
         """The token rows [2E + C, d] float32: each engagement's item and
@@ -214,6 +234,9 @@ class HSTU(nn.Module):
 
     def forward(self, batch: JaggedBatch) -> torch.Tensor:
         """-> one logit a candidate [C], in the batch's candidate order."""
+        if self.head is None:
+            raise ValueError("a retrieval configuration has no task MLP: "
+                             "call HSTU.retrieve")
         with span("hstu.forward"):
             layout = batch.layout()
             self.tokens += layout.rows
@@ -226,3 +249,37 @@ class HSTU(nn.Module):
             states = self.encoder(x, layout, times)
             with span("hstu.head"):
                 return self.head(states[layout.hist_total:])[:, 0]
+
+    def retrieve(self, batch: JaggedBatch):
+        """The k = `cfg.retrieve_k` best item rows a user for a batch of
+        histories alone (every candidate count 0):
+
+            H = encoder(the users' interleaved item and action tokens)
+            q = H[last action token] / ||H[last action token]||_2
+            ids, scores = the k rows j of largest q . item_rows[j]
+
+        -> (ids [U, k] int32, scores [U, k] float32, best first, ties to
+        the smaller row; queries [U, d] float32), under the span
+        `hstu.retrieve`. The item rows are the embedding stage's table
+        [0, item_rows), read in place."""
+        if any(batch.candidates):
+            raise ValueError("retrieval takes histories alone: every "
+                             "candidate count must be 0")
+        if min(batch.events, default=0) < 1:
+            raise ValueError("every user needs an engagement: its last "
+                             "action token is the query")
+        with span("hstu.retrieve"):
+            layout = batch.layout()
+            self.tokens += layout.rows
+            self.pairs += layout.pairs()
+            self.queries += layout.users
+            states = self.encoder(self.embed(batch), layout,
+                                  batch.timestamps.repeat_interleave(2))
+            with span("hstu.query"):
+                last = states[2 * batch.event_offsets[1:].long() - 1]
+                queries = last / torch.linalg.vector_norm(last, dim=1,
+                                                          keepdim=True)
+            ids, scores = mips_topk(
+                queries, self.ebc.tables[:self.cfg.item_rows],
+                self.cfg.retrieve_k)
+            return ids, scores, queries

@@ -56,6 +56,21 @@ Spans, and what each is for:
                                          and the residual
     repro_torch.hstu.head                the task MLP over the candidates'
                                          last-layer states
+    repro_torch.hstu.retrieve            HSTU.retrieve: the whole retrieval
+                                         step (the embedding stage, the
+                                         encoder's spans above, hstu.query
+                                         and hstu.mips open inside it;
+                                         counted by HSTU.queries)
+    repro_torch.hstu.query               the last action token's state of
+                                         each user, gathered and
+                                         L2-normalised
+    repro_torch.hstu.mips                kernels.mips_topk, its checks to
+                                         the launches: the exact scan of
+                                         the item rows and the merge of
+                                         each block's candidates (mips_ms,
+                                         mips_roofline; counted by the
+                                         kernel's LAUNCHES, two a call, and
+                                         ROWS_SCANNED)
 """
 from __future__ import annotations
 
